@@ -1,0 +1,50 @@
+"""Hygiene of the PyTorch port: ``fdtpu_torch`` and ``chip_smoke.py`` import
+neither JAX (``jax``, ``flax``, ``optax``) nor the JAX package ``fdtpu``, and
+they lint clean with the repository's own checker."""
+
+import ast
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+REPO = Path(__file__).resolve().parent.parent
+PORT_FILES = sorted((REPO / "fdtpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+FORBIDDEN = {"jax", "flax", "optax", "fdtpu"}
+
+
+def _imported_roots(path: Path) -> set[str]:
+    roots = set()
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            roots.update(alias.name.split(".")[0] for alias in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            roots.add(node.module.split(".")[0])
+    return roots
+
+
+def test_port_has_files():
+    assert len(PORT_FILES) > 10
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(REPO)))
+def test_port_file_imports_no_jax_and_no_fdtpu(path):
+    bad = _imported_roots(path) & FORBIDDEN
+    assert not bad, f"{path.relative_to(REPO)} imports {sorted(bad)}"
+
+
+def test_scanner_catches_forbidden_imports(tmp_path):
+    src = tmp_path / "m.py"
+    src.write_text("import jax.numpy as jnp\nfrom fdtpu.ops import dft\n"
+                   "from fdtpu_torch.ops import idft\nimport optax\n")
+    assert _imported_roots(src) & FORBIDDEN == {"jax", "fdtpu", "optax"}
+
+
+@pytest.mark.parametrize("paths", [["fdtpu_torch", "chip_smoke.py"], ["tests"]])
+def test_lint_clean(paths):
+    proc = subprocess.run(
+        [sys.executable, str(REPO / "scripts/lint.py"), *paths],
+        cwd=REPO, capture_output=True, text=True,
+    )
+    assert proc.returncode == 0, f"lint problems:\n{proc.stdout}"
