@@ -8,11 +8,14 @@ Usage, from the repository root, on a machine with one CUDA card and nvcc:
 Phases (any failure exits non-zero and prints no result):
 
 1. Header: the card's name and power limit (nvidia-smi), torch and CUDA
-   versions; builds the CUDA kernels from ``fdtpu_torch/kernels/csrc``.
+   versions; builds the CUDA kernels from ``fdtpu_torch/kernels/csrc``, one
+   ``nvcc`` per source, in parallel.
 2. Kernels: each hand-written kernel against its plain PyTorch version on the
-   card, at the serving path's shapes, with its time, the plain version's
-   time, a one-call PyTorch yardstick (``library_ms``, timed only) and the
-   least time the card could take (``bound_ms``).
+   card, at the main path's shapes (B1 at the serving batch, B2 at the
+   training batch), with its time, the plain version's time, a one-call
+   PyTorch yardstick (``library_ms``, timed only) and the least time the
+   card could take (``bound_ms``); then B3, the autograd Function over B1
+   and B2, against autograd through the plain forward.
 3. Slice: the flagship score model (d_model 72, 10 layers, 12 heads, FFN
    2048, 187 frequency tokens; random weights from a seed) on CUDA with the
    block-diagonal attention kernel: ``score_apply`` against the einsum path
@@ -21,6 +24,12 @@ Phases (any failure exits non-zero and prints no result):
    batches of 128; kernel launches counted on each chain; samples
    de-standardized with the synthetic train-set statistics and taken back to
    the time domain.
+4. Training: one training step's parameter gradients on the kernel path
+   against the einsum path; then ``Trainer.fit`` of the flagship for 2
+   epochs (2000 synthetic samples, batch 64: 32 train and 32 val batches an
+   epoch) with finite, falling loss and the kernel launches counted (B2 once
+   per layer and train step, B1 once per layer and train or val forward);
+   train samples/s, ms/step and where a step's device time goes.
 
 Float32 matmuls run in full float32 (TF32 off for matmuls and cuDNN).  The
 line before the last is one JSON object with a record per kernel; the last
@@ -31,6 +40,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import subprocess
 import sys
 import tempfile
@@ -45,6 +55,10 @@ PEAK_HBM_BYTES = 3.35e12
 # The score-level E²-CRF operating point served by bench.py (CACHE_KWARGS).
 CACHE_KWARGS = {"level": "score", "R": 100, "tau_0": 1.35, "eps_order": 1}
 FLAGSHIP = dict(batch=128, seq=187, n_head=12, head_dim=6)
+# bench.py's training protocol: 2000 synthetic samples in batches of 64.
+TRAIN_FLAGSHIP = dict(batch=64, seq=187, n_head=12, head_dim=6)
+TRAIN_SAMPLES = 2000
+TRAIN_EPOCHS = 2
 NUM_STEPS = 1000
 NUM_SAMPLES = 256
 SAMPLE_BATCH = 128
@@ -88,6 +102,18 @@ def attention_bound_ms(batch, seq, n_head, head_dim, itemsize, bf16) -> tuple[fl
     peak plus B·H·T² float32 exps at the float32 peak."""
     n_bytes = 4 * batch * seq * n_head * head_dim * itemsize
     flops = 4 * batch * n_head * seq * seq * head_dim
+    exps = batch * n_head * seq * seq
+    t_bytes = n_bytes / PEAK_HBM_BYTES
+    t_ops = flops / (PEAK_BF16_FLOPS if bf16 else PEAK_FP32_FLOPS) + exps / PEAK_FP32_FLOPS
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes > t_ops else "operations")
+
+
+def attention_bwd_bound_ms(batch, seq, n_head, head_dim, itemsize, bf16) -> tuple[float, str]:
+    """Least time for one blockdiag_mha_bwd call: q, k, v, g read once and
+    dq, dk, dv written once, against the five products' 10·B·H·T²·Dh FLOPs
+    at the input type's peak plus B·H·T² float32 exps at the float32 peak."""
+    n_bytes = 7 * batch * seq * n_head * head_dim * itemsize
+    flops = 10 * batch * n_head * seq * seq * head_dim
     exps = batch * n_head * seq * seq
     t_bytes = n_bytes / PEAK_HBM_BYTES
     t_ops = flops / (PEAK_BF16_FLOPS if bf16 else PEAK_FP32_FLOPS) + exps / PEAK_FP32_FLOPS
@@ -147,12 +173,110 @@ def kernel_phase(torch, bda) -> list[dict]:
     return results
 
 
-def device_breakdown(torch, label: str, fn, reps: int = 3, top: int = 8) -> None:
+def bwd_kernel_phase(torch, bda) -> list[dict]:
+    """B2 against its plain version: max abs error over dq, dk and dv."""
+    import torch.nn.functional as F
+
+    g = torch.Generator(device="cuda").manual_seed(10)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device="cuda")
+
+    def inputs(batch, seq, n_head, head_dim, kind="randn"):
+        d = n_head * head_dim
+        v, grad = randn(batch, n_head, seq, head_dim), randn(batch, seq, d)
+        if kind == "randn":
+            return randn(batch, seq, d), randn(batch, n_head, head_dim, seq), v, grad
+        return (torch.full((batch, seq, d), 3.0, device="cuda"),
+                torch.full((batch, n_head, head_dim, seq), -3.0, device="cuda"), v, grad)
+
+    flag = tuple(TRAIN_FLAGSHIP.values())
+    # Tolerances: float32 sums in another order than the plain version's
+    # einsums, over T = 187..501 keys: 2e-4, the forward's bound.  bfloat16
+    # inputs against the float32 plain version of the unrounded inputs: the
+    # inputs and dS, W round to 8 bits (relative 2^-8 on gradients of
+    # magnitude ~3), so 5e-2, the forward's bf16 bound.
+    cases = [
+        ("train_f32", flag, "randn", torch.float32, 2e-4),
+        ("train_bf16", flag, "randn", torch.bfloat16, 5e-2),
+        ("t501_f32", (16, 501, 12, 6), "randn", torch.float32, 2e-4),
+        ("train_negative_f32", flag, "negative", torch.float32, 2e-4),
+    ]
+    results = []
+    for name, shape, kind, dtype, tol in cases:
+        full = inputs(*shape, kind)
+        args = [a.to(dtype).contiguous() for a in full]
+        got = bda.blockdiag_mha_bwd_cuda(*args)
+        torch.cuda.synchronize()
+        ref = bda.blockdiag_mha_bwd_plain(*full)
+        err = max(float((a.float() - r).abs().max()) for a, r in zip(got, ref))
+        check(all(bool(torch.isfinite(a).all()) for a in got), f"{name}: B2 output not finite")
+        check(err <= tol, f"{name}: B2 max_abs_err {err:.3g} > {tol}")
+        b, t, h, dh = shape
+        q, k, v, grad = args
+        qh = q.view(b, t, h, dh).transpose(1, 2).detach().requires_grad_()
+        kh = k.transpose(2, 3).detach().requires_grad_()
+        vh = v.detach().requires_grad_()
+        out = F.scaled_dot_product_attention(qh, kh, vh)
+        gh = grad.view(b, t, h, dh).transpose(1, 2)
+        kernel_ms = time_ms(torch, lambda: bda.blockdiag_mha_bwd_cuda(*args))
+        plain_ms = time_ms(torch, lambda: bda.blockdiag_mha_bwd_plain(*args))
+        library_ms = time_ms(torch, lambda: torch.autograd.grad(out, (qh, kh, vh), gh,
+                                                                retain_graph=True))
+        bound_ms, bound_by = attention_bwd_bound_ms(b, t, h, dh, q.element_size(),
+                                                    dtype == torch.bfloat16)
+        rec = dict(case=name, shape=list(shape), dtype=str(dtype).split(".")[-1],
+                   max_abs_err=err, tol=tol, kernel_ms=kernel_ms, plain_ms=plain_ms,
+                   library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)
+        print("kernel_bwd", json.dumps(rec), flush=True)
+        results.append(rec)
+    return results
+
+
+def trainable_phase(torch, bda) -> dict:
+    """B3: the Function's gradients against autograd through the plain
+    forward, at the training shape, and the time of forward + backward."""
+    import torch.nn.functional as F
+
+    g = torch.Generator(device="cuda").manual_seed(11)
+    b, t, h, dh = TRAIN_FLAGSHIP.values()
+    q = torch.randn((b, t, h * dh), generator=g, device="cuda").requires_grad_()
+    k = torch.randn((b, h, dh, t), generator=g, device="cuda").requires_grad_()
+    v = torch.randn((b, h, t, dh), generator=g, device="cuda").requires_grad_()
+    grad = torch.randn((b, t, h * dh), generator=g, device="cuda")
+
+    def through(fn):
+        return torch.autograd.grad(fn(q, k, v), (q, k, v), grad)
+
+    got = through(bda.blockdiag_mha_trainable)
+    want = through(bda.blockdiag_mha_plain)
+    err = max(float((a - w).abs().max()) for a, w in zip(got, want))
+    # Tolerance: two float32 gradients of the same function, summed in other
+    # orders: 2e-4, the kernels' own bound.
+    check(err <= 2e-4, f"blockdiag_mha_trainable gradient max_abs_err {err:.3g} > 2e-4")
+    qh, kh = q.view(b, t, h, dh).transpose(1, 2), k.transpose(2, 3)
+    gh = grad.view(b, t, h, dh).transpose(1, 2)
+    fwd_bound, _ = attention_bound_ms(b, t, h, dh, 4, False)
+    bwd_bound, _ = attention_bwd_bound_ms(b, t, h, dh, 4, False)
+    rec = dict(
+        shape=[b, t, h, dh], max_abs_err=err,
+        ms=time_ms(torch, lambda: through(bda.blockdiag_mha_trainable)),
+        plain_ms=time_ms(torch, lambda: through(bda.blockdiag_mha_plain)),
+        library_ms=time_ms(torch, lambda: torch.autograd.grad(
+            F.scaled_dot_product_attention(qh, kh, v), (q, k, v), gh)),
+        bound_ms=fwd_bound + bwd_bound, bound_by="operations",
+    )
+    print("trainable", json.dumps(rec), flush=True)
+    return rec
+
+
+def device_breakdown(torch, label: str, fn, reps: int = 3, top: int = 8,
+                     no_grad: bool = True) -> None:
     """Device time of ``fn`` by kernel (torch.profiler) and the share of its
     wall time (measured under the profiler) that the device was busy."""
     from torch.profiler import ProfilerActivity, profile
 
-    with torch.no_grad():
+    with torch.set_grad_enabled(not no_grad):
         fn()
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -166,6 +290,10 @@ def device_breakdown(torch, label: str, fn, reps: int = 3, top: int = 8) -> None
         dev_us = getattr(e, "self_device_time_total", None)
         if dev_us is None:
             dev_us = getattr(e, "self_cuda_time_total", 0)
+        # A record_function range (e.g. Optimizer.step) shows on the device
+        # too, over kernels that have rows of their own: count those once.
+        if getattr(e, "is_user_annotation", False):
+            continue
         if dev_us > 0 and "cuda" in str(getattr(e, "device_type", "")).lower():
             rows.append((dev_us / 1e3 / reps, e.count // reps, e.key))
     rows.sort(reverse=True)
@@ -173,8 +301,9 @@ def device_breakdown(torch, label: str, fn, reps: int = 3, top: int = 8) -> None
     if not rows:
         print(f"breakdown {label}: wall {wall_ms:.4f} ms, the profiler saw no device time")
         return
+    launched = sum(e.count for e in prof.key_averages() if e.key == "cudaLaunchKernel") // reps
     print(f"breakdown {label}: wall {wall_ms:.4f} ms, device busy {busy:.4f} ms "
-          f"({100 * busy / wall_ms:.1f}%)", flush=True)
+          f"({100 * busy / wall_ms:.1f}%), {launched} cudaLaunchKernel calls", flush=True)
     for ms, count, name in rows[:top]:
         print(f"breakdown {label}: {ms:9.4f} ms {100 * ms / busy:5.1f}% x{count:<5d} "
               f"{name[:90]}", flush=True)
@@ -276,6 +405,128 @@ def slice_phase(torch, bda) -> dict:
     return chains
 
 
+def train_phase(torch, bda) -> dict:
+    """The flagship's training path: one step's gradients, kernel path
+    against einsum path; 2 epochs of ``Trainer.fit``; train throughput."""
+    from fdtpu_torch.data import SyntheticDatamodule
+    from fdtpu_torch.diffusion import VPScheduler, sde_loss
+    from fdtpu_torch.models import ScoreModel, ScoreModelConfig, init_score_model
+    from fdtpu_torch.train import Trainer, get_training_params, make_optimizer, train_step
+
+    cfg = ScoreModelConfig(n_channels=1, max_len=TRAIN_FLAGSHIP["seq"],
+                           attention_impl="blockdiag")
+    scheduler = VPScheduler(fourier_noise_scaling=True).with_noise_scaling(cfg.max_len, "cuda")
+    with tempfile.TemporaryDirectory() as tmp:
+        dm = SyntheticDatamodule(tmp, max_len=cfg.max_len, num_samples=TRAIN_SAMPLES,
+                                 batch_size=TRAIN_FLAGSHIP["batch"], fourier_transform=True,
+                                 standardize=True)
+        dm.prepare_data()
+        dm.setup()
+        batch = torch.from_numpy(next(iter(dm.train_dataloader()))).cuda()
+
+        # One step's gradients with dropout on, kernel path against einsum
+        # path: the same weights, t, z and dropout masks (same generator seed).
+        g = torch.Generator(device="cuda").manual_seed(5)
+        t = torch.rand((len(batch),), generator=g, device="cuda") * (1 - 1e-5) + 1e-5
+        z = torch.randn(batch.shape, generator=g, device="cuda")
+        grads, losses = [], []
+        for impl in ("blockdiag", "einsum"):
+            net = init_score_model(dataclasses.replace(cfg, attention_impl=impl),
+                                   torch.Generator().manual_seed(0)).requires_grad_(True)
+            loss = sde_loss(net, scheduler, batch, torch.Generator(device="cuda").manual_seed(6),
+                            timesteps=t, noise=z)
+            loss.backward()
+            losses.append(float(loss.detach()))
+            grads.append(torch.cat([p.grad.flatten() for p in net.parameters()]))
+        grad_err = float((grads[0] - grads[1]).abs().max())
+        grad_max = float(grads[1].abs().max())
+        print(f"train: one step, kernel vs einsum path: loss {losses[0]:.6g} vs {losses[1]:.6g}, "
+              f"gradient max_abs_err {grad_err:.3g} (max |grad| {grad_max:.3g})", flush=True)
+        # Tolerance: 1e-4 relative to the largest gradient; the two paths sum
+        # the attention in other orders in float32 through 10 layers.
+        check(abs(losses[0] - losses[1]) <= 1e-5 * abs(losses[1]), "train step: losses differ")
+        check(grad_err <= 1e-4 * grad_max, f"train step: gradient error {grad_err:.3g} "
+              f"> 1e-4 x {grad_max:.3g}")
+
+        net = init_score_model(cfg, torch.Generator().manual_seed(0))
+        model = ScoreModel(config=cfg, network=net, scheduler=scheduler,
+                           num_training_steps=get_training_params(dm, TRAIN_EPOCHS)[
+                               "num_training_steps"])
+        trainer = Trainer(max_epochs=TRAIN_EPOCHS, run_dir=tmp, run_id="smoke", seed=42,
+                          log_every_n_steps=10_000)
+        torch.cuda.synchronize()
+        bda.launches = bda.launches_bwd = bda.launches_trainable = 0
+        t0 = time.perf_counter()
+        trainer.fit(model, dm)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        counts = dict(launches=bda.launches, launches_bwd=bda.launches_bwd,
+                      launches_trainable=bda.launches_trainable)
+        records = [json.loads(line) for line in trainer.metrics_path.read_text().splitlines()]
+    epochs = [r for r in records if "val/loss" in r]
+    steps = TRAIN_EPOCHS * len(dm.train_dataloader())
+    val_forwards = TRAIN_EPOCHS * len(dm.val_dataloader())
+    print("train: epochs", json.dumps(epochs), flush=True)
+    check(len(epochs) == TRAIN_EPOCHS, f"train: {len(epochs)} epoch records")
+    check(all(math.isfinite(r[k]) for r in epochs for k in ("train/loss_epoch", "val/loss")),
+          "train: loss not finite")
+    check(epochs[1]["train/loss_epoch"] < epochs[0]["train/loss_epoch"],
+          "train: the second epoch's train loss is not below the first's")
+    layers = cfg.num_layers
+    check(counts["launches_bwd"] == layers * steps,
+          f"train: {counts['launches_bwd']} B2 launches for {steps} steps x {layers} layers")
+    check(counts["launches_trainable"] == layers * steps,
+          f"train: {counts['launches_trainable']} B3 backward passes for {steps} steps")
+    check(counts["launches"] == layers * (steps + val_forwards),
+          f"train: {counts['launches']} B1 launches for {steps} + {val_forwards} forwards")
+    check(not any(p.requires_grad for p in model.network.parameters()),
+          "train: the returned network is not frozen")
+
+    # Steady-state step time on one batch, and where a step's device time goes.
+    net = init_score_model(cfg, torch.Generator().manual_seed(0)).requires_grad_(True)
+    optimizer = make_optimizer(net.parameters(), model.lr_max, 1000)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+
+    def step():
+        return train_step(net, optimizer, scheduler, batch, gen)
+
+    for _ in range(3):
+        step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    n = 20
+    for _ in range(n):
+        step()
+    torch.cuda.synchronize()
+    ms_per_step = 1e3 * (time.perf_counter() - t0) / n
+
+    # The same step cut at synchronizations: loss forward, backward, clip + AdamW.
+    split = [0.0, 0.0, 0.0]
+    for _ in range(n):
+        marks = [time.perf_counter()]
+        loss = sde_loss(net, scheduler, batch, gen)
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        optimizer.zero_grad()
+        loss.backward()
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        optimizer.step()
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        for i in range(3):
+            split[i] += 1e3 * (marks[i + 1] - marks[i]) / n
+    result = dict(fit_seconds=fit_s, train_samples_per_s=TRAIN_EPOCHS * TRAIN_SAMPLES / fit_s,
+                  ms_per_step=ms_per_step, split_ms=dict(zip(("loss", "backward", "optimizer"),
+                                                             split)),
+                  step_samples_per_s=1e3 * TRAIN_FLAGSHIP["batch"] / ms_per_step,
+                  steps=steps, val_forwards=val_forwards, best_val_loss=trainer.best_val_loss,
+                  grad_max_abs_err=grad_err, **counts)
+    print("train", json.dumps(result), flush=True)
+    device_breakdown(torch, "train-step", step, reps=5, top=10, no_grad=False)
+    return result
+
+
 def main() -> int:
     import torch
 
@@ -297,29 +548,42 @@ def main() -> int:
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}", flush=True)
     t0 = time.perf_counter()
-    build.build([bda.SOURCE], verbose=True)
+    build.build([bda.SOURCE, bda.SOURCE_BWD], verbose=True)
     print(f"build: {time.perf_counter() - t0:.1f} s", flush=True)
 
     kernel_results = kernel_phase(torch, bda)
+    bwd_results = bwd_kernel_phase(torch, bda)
+    trainable = trainable_phase(torch, bda)
     chains = slice_phase(torch, bda)
+    train = train_phase(torch, bda)
 
-    flagship = kernel_results[0]
-    launches = sum(c["launches"] for c in chains.values())
-    record = {
-        "name": "blockdiag_mha",
-        "route": "cuda",
-        "source": "fdtpu_torch/kernels/csrc/blockdiag_attention.cu",
-        "replaces": "fdtpu/kernels/blockdiag_attention.py:221",
-        "launches": launches,
-        "max_abs_err": max(r["max_abs_err"] for r in kernel_results if r["dtype"] == "float32"),
-        "ms": flagship["kernel_ms"],
-        "plain_ms": flagship["plain_ms"],
-        "bound_ms": flagship["bound_ms"],
-        "bound_by": flagship["bound_by"],
-        "library_ms": flagship["library_ms"],
-    }
+    def kernel_record(name, source, replaces, launches, results):
+        fp32 = [r for r in results if r["dtype"] == "float32"]
+        head = fp32[0]
+        return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                "launches": launches, "max_abs_err": max(r["max_abs_err"] for r in fp32),
+                "ms": head["kernel_ms"], "plain_ms": head["plain_ms"],
+                "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+                "library_ms": head["library_ms"]}
+
+    records = [
+        kernel_record("blockdiag_mha", "fdtpu_torch/kernels/csrc/blockdiag_attention.cu",
+                      "fdtpu/kernels/blockdiag_attention.py:221",
+                      sum(c["launches"] for c in chains.values()) + train["launches"],
+                      kernel_results),
+        kernel_record("blockdiag_mha_bwd", "fdtpu_torch/kernels/csrc/blockdiag_attention_bwd.cu",
+                      "fdtpu/kernels/blockdiag_attention.py:373", train["launches_bwd"],
+                      bwd_results),
+        {"name": "blockdiag_mha_trainable", "route": "autograd.Function",
+         "source": "fdtpu_torch/kernels/blockdiag_attention.py",
+         "replaces": "fdtpu/kernels/blockdiag_attention.py:410",
+         "launches": train["launches_trainable"], "max_abs_err": trainable["max_abs_err"],
+         "ms": trainable["ms"], "plain_ms": trainable["plain_ms"],
+         "bound_ms": trainable["bound_ms"], "bound_by": trainable["bound_by"],
+         "library_ms": trainable["library_ms"]},
+    ]
     print(nvidia_smi(), flush=True)
-    print(json.dumps({"kernels": [record]}), flush=True)
+    print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -1,4 +1,4 @@
 from fdtpu_torch.data.datamodules import SyntheticDatamodule
-from fdtpu_torch.data.dataset import DiffusionDataset
+from fdtpu_torch.data.dataset import DiffusionDataset, NumpyLoader
 
-__all__ = ["DiffusionDataset", "SyntheticDatamodule"]
+__all__ = ["DiffusionDataset", "NumpyLoader", "SyntheticDatamodule"]

@@ -4,8 +4,11 @@
 seeded ``numpy`` generator: the generated arrays are bit-identical to the JAX
 package's.  The JAX package stores univariate data as CSV through pandas;
 the port stores float32 ``.npy`` files for every channel count (the values
-round-trip exactly either way).  The other datamodules are still to port
-(ROADMAP.md).
+round-trip exactly either way).  The loaders follow the JAX base datamodule
+(``fdtpu/data/datamodules.py:104-154``): a shuffled train loader seeded with
+``random_seed``, a val loader over the test split standardized with the
+train statistics, an unstandardized test loader.  The other datamodules are
+still to port (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -14,10 +17,11 @@ import json
 import logging
 import os
 from pathlib import Path
+from typing import Any
 
 import numpy as np
 
-from fdtpu_torch.data.dataset import DiffusionDataset
+from fdtpu_torch.data.dataset import DiffusionDataset, NumpyLoader
 
 
 class SyntheticDatamodule:
@@ -28,6 +32,7 @@ class SyntheticDatamodule:
         self,
         data_dir: Path | str,
         random_seed: int = 42,
+        batch_size: int = 32,
         fourier_transform: bool = False,
         standardize: bool = False,
         max_len: int = 100,
@@ -37,6 +42,7 @@ class SyntheticDatamodule:
         self.n_channels = n_channels
         self.data_dir = Path(data_dir) / self.dataset_name
         self.random_seed = random_seed
+        self.batch_size = batch_size
         self.fourier_transform = fourier_transform
         self.standardize = standardize
         self.max_len = max_len
@@ -99,6 +105,31 @@ class SyntheticDatamodule:
             fourier_transform=self.fourier_transform,
             standardize=self.standardize,
         )
+
+    def train_dataloader(self) -> NumpyLoader:
+        return NumpyLoader(self.train_set(), self.batch_size, shuffle=True,
+                           seed=self.random_seed)
+
+    def val_dataloader(self) -> NumpyLoader:
+        val_set = DiffusionDataset(
+            X=self.X_test,
+            fourier_transform=self.fourier_transform,
+            standardize=self.standardize,
+            X_ref=self.X_train,
+        )
+        return NumpyLoader(val_set, self.batch_size, shuffle=False)
+
+    def test_dataloader(self) -> NumpyLoader:
+        test_set = DiffusionDataset(X=self.X_test, fourier_transform=self.fourier_transform)
+        return NumpyLoader(test_set, self.batch_size, shuffle=False)
+
+    @property
+    def dataset_parameters(self) -> dict[str, Any]:
+        return {
+            "n_channels": int(self.X_train.shape[2]),
+            "max_len": int(self.X_train.shape[1]),
+            "num_training_steps": -(-len(self.X_train) // self.batch_size),
+        }
 
     @property
     def feature_mean_and_std(self) -> tuple[np.ndarray, np.ndarray]:

@@ -1,15 +1,15 @@
-"""Diffusion dataset (port of ``fdtpu/data/dataset.py:39-91``).
+"""Diffusion dataset and its batch loader (port of
+``fdtpu/data/dataset.py:39-129``).
 
 The DFT and the standardization statistics are computed once, at
 construction, on the host (the frequency transform lives outside the
-network).  The statistics are what ``cli/sample.py`` uses to de-standardize
-generated samples; the batching for training comes with the training slice
-(ROADMAP.md).
+network).  :class:`NumpyLoader` draws the same ``np.random.default_rng(seed)``
+permutations as the JAX package's, so the two yield bit-identical batches.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Iterator, Optional
 
 import numpy as np
 import torch
@@ -57,3 +57,46 @@ class DiffusionDataset:
         if not self.standardize:
             return self.X
         return (self.X - self.feature_mean) / self.feature_std
+
+    def __len__(self) -> int:
+        return len(self.X)
+
+    def __getitem__(self, index: int) -> dict[str, np.ndarray]:
+        x = self.X[index]
+        if self.standardize:
+            x = (x - self.feature_mean) / self.feature_std
+        return {"X": x}
+
+
+class NumpyLoader:
+    """Seeded, shuffled mini-batches of a :class:`DiffusionDataset` as numpy
+    arrays; ``len = ceil(N / batch_size)`` (the last batch may be partial).
+    Each iteration draws the next permutation, so epochs differ."""
+
+    def __init__(
+        self,
+        dataset: DiffusionDataset,
+        batch_size: int,
+        shuffle: bool = False,
+        seed: int = 0,
+    ) -> None:
+        self.dataset = dataset
+        self.batch_size = batch_size
+        self.shuffle = shuffle
+        self._rng = np.random.default_rng(seed)
+        self._data = dataset.standardized()
+
+    def __len__(self) -> int:
+        return -(-len(self.dataset) // self.batch_size)
+
+    def skip_epochs(self, n: int) -> None:
+        """Advance the shuffle past ``n`` epochs without building batches."""
+        if self.shuffle:
+            for _ in range(n):
+                self._rng.permutation(len(self.dataset))
+
+    def __iter__(self) -> Iterator[np.ndarray]:
+        n = len(self.dataset)
+        idx = self._rng.permutation(n) if self.shuffle else np.arange(n)
+        for start in range(0, n, self.batch_size):
+            yield self._data[idx[start : start + self.batch_size]]

@@ -40,6 +40,10 @@ class SDE:
     eps: float = 1e-5
     G: Optional[torch.Tensor] = None
 
+    @property
+    def T(self) -> float:
+        return 1.0
+
     def with_noise_scaling(self, max_len: int, device=None) -> "SDE":
         """Finish initialization by computing G for a series length."""
         return dataclasses.replace(
@@ -74,6 +78,14 @@ class SDE:
 
     def step(self, model_output, timestep, sample, noise, step_size) -> torch.Tensor:
         raise NotImplementedError
+
+    def add_noise(
+        self, original_samples: torch.Tensor, noise: torch.Tensor, t: torch.Tensor
+    ) -> torch.Tensor:
+        """Forward perturbation ``mean(x, t) + noise``; ``noise`` is already
+        scaled by diag(std)."""
+        mean, _ = self.marginal_prob(original_samples, t)
+        return mean + noise
 
     def prior_sampling(
         self,

@@ -8,9 +8,11 @@ heads, ≈3.2M parameters).
 
 The JAX package's ``variables`` pytree becomes the :class:`ScoreNetwork`
 module; ``init_score_model`` builds it from an explicit ``torch.Generator``
-on the requested device (CUDA unless ``device="cpu"``).  Inference only in
-this slice: the training path, the cached forwards and the MLP/LSTM
-backbones are still to port (ROADMAP.md).
+on the requested device (CUDA unless ``device="cpu"``), frozen for
+sampling.  ``forward(x, t, train=True, generator=g)`` is the training
+forward, with dropout drawn from ``g`` (the trainer,
+:mod:`fdtpu_torch.train.trainer`, makes its own trainable copy).  The cached
+forwards and the MLP/LSTM backbones are still to port (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -85,7 +87,7 @@ class ScoreNetwork(nn.Module):
         self.time_encoder = GaussianFourierProjection(cfg.d_model, cfg.gfp_scale)
         self.backbone = nn.ModuleList(
             EncoderLayer(cfg.d_model, cfg.n_head, cfg.dim_feedforward, cfg.ln_eps,
-                         attention_impl)
+                         attention_impl, cfg.dropout)
             for _ in range(cfg.num_layers)
         )
         self.unembedder = nn.utils.skip_init(nn.Linear, cfg.d_model, cfg.n_channels)
@@ -98,8 +100,15 @@ class ScoreNetwork(nn.Module):
         for layer in self.backbone:
             layer.reset_parameters(generator)
 
-    def forward(self, x: torch.Tensor, timesteps: torch.Tensor) -> torch.Tensor:
-        """Uncached score forward: ``(B, max_len, n_channels) → same shape``."""
+    def forward(
+        self,
+        x: torch.Tensor,
+        timesteps: torch.Tensor,
+        train: bool = False,
+        generator: Optional[torch.Generator] = None,
+    ) -> torch.Tensor:
+        """Uncached score forward: ``(B, max_len, n_channels) → same shape``;
+        dropout only with ``train`` and a ``generator``."""
         cfg = self.config
         if tuple(x.shape[1:]) != (cfg.max_len, cfg.n_channels):
             raise ValueError(
@@ -113,7 +122,7 @@ class ScoreNetwork(nn.Module):
         h = self.pos_encoder(h)
         h = self.time_encoder(h, timesteps)
         for layer in self.backbone:
-            h = layer(h)
+            h = layer(h, train, generator)
         out = F.linear(h, self.unembedder.weight.to(h.dtype), self.unembedder.bias.to(h.dtype))
         return out.to(out_dtype)
 
@@ -145,9 +154,15 @@ def init_score_model(
     return net.to(dev).eval().requires_grad_(False)
 
 
-def score_apply(network: ScoreNetwork, x: torch.Tensor, timesteps: torch.Tensor) -> torch.Tensor:
-    """Uncached score forward (inference): ``(B, max_len, n_channels)``."""
-    return network(x, timesteps)
+def score_apply(
+    network: ScoreNetwork,
+    x: torch.Tensor,
+    timesteps: torch.Tensor,
+    train: bool = False,
+    generator: Optional[torch.Generator] = None,
+) -> torch.Tensor:
+    """Uncached score forward: ``(B, max_len, n_channels)``."""
+    return network(x, timesteps, train, generator)
 
 
 def param_count(network: nn.Module) -> int:
@@ -163,6 +178,8 @@ class ScoreModel:
     network: ScoreNetwork
     scheduler: Any  # fdtpu_torch.diffusion.sde.SDE
     num_training_steps: int = 1000
+    lr_max: float = 1e-3
+    likelihood_weighting: bool = False
 
     @property
     def n_channels(self) -> int:

@@ -3,16 +3,21 @@
 
 Semantics follow torch's ``nn.TransformerEncoderLayer`` defaults: post-norm,
 ReLU, dim_feedforward 2048, LayerNorm eps 1e-5 (statistics in float32, cast
-back to the compute dtype before scale and bias).  Dropout 0.1 is a no-op at
-inference, the only mode of this slice.  The cached (MIXED / CACHED) modes of
-the KV-level cache are not ported yet (ROADMAP.md).
+back to the compute dtype before scale and bias), dropout 0.1.  Dropout acts
+only in ``forward(x, train=True, generator=g)``, at the three sites of the
+JAX layer (attention output, FFN hidden, FFN output): a keep-mask drawn from
+``g`` and ``x / keep`` where kept, as ``_maybe_dropout``
+(``fdtpu/models/transformer.py:109-116``).  Without a generator there is no
+dropout, as the JAX layer has none without a key.  The cached (MIXED /
+CACHED) modes of the KV-level cache are not ported yet (ROADMAP.md).
 
 ``attention_impl``:
 
 * ``"einsum"`` — plain attention over ``(B, T, H, Dh)``, float32 scores and
   softmax, value contraction in the compute dtype.
-* ``"blockdiag"`` / ``"blockdiag_noshift"`` — the fused kernel
-  (:mod:`fdtpu_torch.kernels.blockdiag_attention`); the projections write
+* ``"blockdiag"`` / ``"blockdiag_noshift"`` — the fused kernels through
+  ``blockdiag_mha_trainable`` (:mod:`fdtpu_torch.kernels.blockdiag_attention`:
+  forward B1, backward B2); the projections write
   straight into its layouts (q merged, k ``(B, H, Dh, T)``, v
   ``(B, H, T, Dh)``).  ``noshift`` drops the max subtraction; it was measured
   non-finite on full sampling chains and is kept for parity only.
@@ -27,7 +32,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from fdtpu_torch.kernels.blockdiag_attention import blockdiag_mha
+from fdtpu_torch.kernels.blockdiag_attention import blockdiag_mha_trainable
 from fdtpu_torch.models.initializers import linear_init_, xavier_uniform_
 
 ATTENTION_IMPLS = ("einsum", "blockdiag", "blockdiag_noshift")
@@ -64,6 +69,18 @@ def _lin(x: torch.Tensor, layer: nn.Linear) -> torch.Tensor:
     return F.linear(x, layer.weight.to(x.dtype), layer.bias.to(x.dtype))
 
 
+def _dropout(
+    x: torch.Tensor, rate: float, train: bool, generator: Optional[torch.Generator]
+) -> torch.Tensor:
+    """Inverted dropout with a keep-mask drawn from ``generator``; the
+    identity unless training with a positive rate and a generator."""
+    if not train or rate <= 0.0 or generator is None:
+        return x
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, 0.0)
+
+
 class EncoderLayer(nn.Module):
     def __init__(
         self,
@@ -72,6 +89,7 @@ class EncoderLayer(nn.Module):
         dim_feedforward: int = 2048,
         ln_eps: float = 1e-5,
         attention_impl: str = "einsum",
+        dropout: float = 0.1,
     ) -> None:
         super().__init__()
         if attention_impl not in ATTENTION_IMPLS:
@@ -80,6 +98,7 @@ class EncoderLayer(nn.Module):
             raise ValueError(f"d_model {d_model} is not a multiple of n_head {n_head}")
         self.n_head = n_head
         self.attention_impl = attention_impl
+        self.dropout = dropout
         self.in_proj_weight = nn.Parameter(torch.empty(3 * d_model, d_model))
         self.in_proj_bias = nn.Parameter(torch.zeros(3 * d_model))
         self.out_proj = nn.utils.skip_init(nn.Linear, d_model, d_model)
@@ -118,10 +137,19 @@ class EncoderLayer(nn.Module):
         k = (k + bias[d:2 * d].reshape(1, h, dh, 1)).contiguous()
         v = torch.einsum("btc,hec->bhte", x, w[2 * d:].reshape(h, dh, d))
         v = (v + bias[2 * d:].reshape(1, h, 1, dh)).contiguous()
-        return blockdiag_mha(q, k, v, shift=self.attention_impl == "blockdiag")
+        return blockdiag_mha_trainable(q, k, v, shift=self.attention_impl == "blockdiag")
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """One post-norm encoder layer over (B, T, D) hidden states."""
-        x = self.norm1(x + _lin(self._self_attention(x), self.out_proj))
-        ff = _lin(torch.relu(_lin(x, self.linear1)), self.linear2)
-        return self.norm2(x + ff)
+    def forward(
+        self,
+        x: torch.Tensor,
+        train: bool = False,
+        generator: Optional[torch.Generator] = None,
+    ) -> torch.Tensor:
+        """One post-norm encoder layer over (B, T, D) hidden states; dropout
+        only with ``train`` and a ``generator``."""
+        rate = self.dropout
+        attn = _lin(self._self_attention(x), self.out_proj)
+        x = self.norm1(x + _dropout(attn, rate, train, generator))
+        ff = _dropout(torch.relu(_lin(x, self.linear1)), rate, train, generator)
+        ff = _lin(ff, self.linear2)
+        return self.norm2(x + _dropout(ff, rate, train, generator))

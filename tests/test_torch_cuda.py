@@ -1,5 +1,6 @@
-"""Card-only tests of the port's CUDA kernels, held against their plain
-PyTorch versions on the card.  They skip without a CUDA device.
+"""Card-only tests of the port's CUDA kernels (forward B1, backward B2) and
+of the autograd Function over them (B3), held against their plain PyTorch
+versions on the card.  They skip without a CUDA device.
 
 This file imports only torch and the port, so it also runs where JAX is not
 installed:
@@ -72,5 +73,59 @@ def test_kernel_raises_instead_of_falling_back(cuda):
         bda.blockdiag_mha(q, k.transpose(2, 3).contiguous().transpose(2, 3), v)
     with pytest.raises(ValueError, match="head_dim"):
         bda.blockdiag_mha(*_inputs(cuda, 1, 8, 1, 40))
-    with pytest.raises(NotImplementedError, match="backward"):
+    # The forward kernel records no gradient; the autograd Function gives one.
+    with pytest.raises(NotImplementedError, match="blockdiag_mha_trainable"):
         bda.blockdiag_mha(q.requires_grad_(), k, v)
+    out = bda.blockdiag_mha_trainable(q, k, v)
+    (dq,) = torch.autograd.grad(out.square().sum(), (q,))
+    assert dq.shape == q.shape and bool(torch.isfinite(dq).all())
+
+
+BWD_SHAPES = [(128, 187, 12, 6), (4, 20, 3, 6), (2, 1024, 4, 8), (3, 33, 2, 16), (2, 70, 1, 32),
+              (16, 501, 12, 6), (64, 187, 12, 6)]
+
+
+@pytest.mark.parametrize("shape", BWD_SHAPES)
+def test_bwd_kernel_matches_plain_float32(cuda, shape):
+    q, k, v = _inputs(cuda, *shape)
+    g = torch.randn(q.shape, generator=cuda, device="cuda")
+    before = bda.launches_bwd
+    got = bda.blockdiag_mha_bwd(q, k, v, g)
+    torch.cuda.synchronize()
+    assert bda.launches_bwd == before + 1
+    for a, b in zip(got, bda.blockdiag_mha_bwd_plain(q, k, v, g)):
+        torch.testing.assert_close(a, b, rtol=0, atol=2e-4)
+
+
+def test_bwd_kernel_bf16_against_float32_plain(cuda):
+    q, k, v = _inputs(cuda, 64, 187, 12, 6)
+    g = torch.randn(q.shape, generator=cuda, device="cuda")
+    got = bda.blockdiag_mha_bwd(*(a.bfloat16() for a in (q, k, v, g)))
+    for a, b in zip(got, bda.blockdiag_mha_bwd_plain(q, k, v, g)):
+        assert a.dtype == torch.bfloat16
+        torch.testing.assert_close(a.float(), b, rtol=0, atol=5e-2)
+
+
+def test_trainable_gradients_match_autograd_through_plain(cuda):
+    q, k, v = (a.requires_grad_() for a in _inputs(cuda, 8, 187, 12, 6))
+    g = torch.randn(q.shape, generator=cuda, device="cuda")
+    before = bda.launches_trainable
+    got = torch.autograd.grad(bda.blockdiag_mha_trainable(q, k, v), (q, k, v), g)
+    assert bda.launches_trainable == before + 1
+    want = torch.autograd.grad(bda.blockdiag_mha_plain(q, k, v), (q, k, v), g)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=0, atol=2e-4)
+
+
+def test_bwd_kernel_raises_instead_of_falling_back(cuda):
+    q, k, v = _inputs(cuda, 2, 16, 2, 6)
+    g = torch.randn(q.shape, generator=cuda, device="cuda")
+    with pytest.raises(TypeError):
+        bda.blockdiag_mha_bwd(q.double(), k.double(), v.double(), g.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        bda.blockdiag_mha_bwd(q, k.transpose(2, 3).contiguous().transpose(2, 3), v, g)
+    with pytest.raises(ValueError, match="contiguous"):
+        bda.blockdiag_mha_bwd(q, k, v, g.transpose(0, 1).contiguous().transpose(0, 1))
+    q, k, v = _inputs(cuda, 1, 8, 1, 40)
+    with pytest.raises(ValueError, match="head_dim"):
+        bda.blockdiag_mha_bwd(q, k, v, torch.zeros_like(q))

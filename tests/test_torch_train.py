@@ -1,0 +1,333 @@
+"""Port parity: the training slice, fdtpu_torch against fdtpu on the CPU.
+
+The JAX loss splits its key into (t, z, dropout); the port takes t and z
+injected, so each test rebuilds z from the JAX key split and hands the same
+numbers to both.  Tolerances: rtol 1e-5 for one loss; the learning-rate
+schedule at rtol 1e-6 with atol 1e-7·lr_max (optax evaluates it in float32);
+the clip at rtol 1e-6; 1e-4 for losses and parameters over three optimizer
+steps (float32 sums taken in another order by two frameworks).
+"""
+
+import dataclasses
+import json
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import optax
+import pytest
+import torch
+
+from fdtpu.data.datamodules import SyntheticDatamodule as JaxSynthetic
+from fdtpu.data.dataset import DiffusionDataset as JaxDataset
+from fdtpu.data.dataset import NumpyLoader as JaxLoader
+from fdtpu.diffusion import VPScheduler as JaxVP
+from fdtpu.diffusion.losses import sde_loss as jax_sde_loss
+from fdtpu.kernels import blockdiag_attention as jax_bda
+from fdtpu.models import score_models as jsm
+from fdtpu.train import state as jax_state
+from fdtpu.train.trainer import get_training_params as jax_training_params
+from fdtpu_torch.data import DiffusionDataset, NumpyLoader, SyntheticDatamodule
+from fdtpu_torch.diffusion import VPScheduler, sde_loss
+from fdtpu_torch.models import ScoreModel, ScoreModelConfig, init_score_model
+from fdtpu_torch.sampling import DiffusionSampler
+from fdtpu_torch.train import (
+    Trainer,
+    clip_by_global_norm_,
+    get_training_params,
+    make_lr_schedule,
+    make_optimizer,
+)
+from fdtpu_torch.utils.convert import load_jax_variables, state_dict_to_jax_variables
+
+TINY = dict(n_channels=1, max_len=16, d_model=12, num_layers=2, n_head=2, dim_feedforward=24)
+
+
+@pytest.fixture
+def pallas_interpret(monkeypatch):
+    """The JAX custom VJP's Pallas forward and backward in interpret mode,
+    as tests/test_kernels.py runs them on the CPU."""
+    fwd, bwd = jax_bda.blockdiag_mha, jax_bda.blockdiag_mha_bwd
+    monkeypatch.setattr(
+        jax_bda, "blockdiag_mha",
+        lambda q, k, v, q_tile=256, interpret=False, shift=True: fwd(
+            q, k, v, q_tile=q_tile, interpret=True, shift=shift),
+    )
+    monkeypatch.setattr(
+        jax_bda, "blockdiag_mha_bwd",
+        lambda q, k, v, g, interpret=False: bwd(q, k, v, g, interpret=True),
+    )
+
+
+def _pair(attention_impl="einsum", dropout=0.0, seed=0):
+    kw = dict(TINY, attention_impl=attention_impl, dropout=dropout)
+    jcfg = jsm.ScoreModelConfig(**kw)
+    variables = jax.tree.map(np.asarray, jsm.init_score_model(jax.random.PRNGKey(seed), jcfg))
+    net = init_score_model(ScoreModelConfig(**kw), device="cpu")
+    load_jax_variables(net, variables)
+    return jcfg, variables, net
+
+
+def _jax_apply(jcfg, constants):
+    def apply_fn(params, xn, t, train, rngs):
+        return jsm.score_apply({"params": params, "constants": constants}, jcfg, xn, t,
+                               train=train, rngs=rngs)
+    return apply_fn
+
+
+def _z_of_key(key, shape):
+    """The z that fdtpu's sde_loss draws from ``key``."""
+    return np.array(jax.random.normal(jax.random.split(key, 3)[1], shape, jnp.float32))
+
+
+def _batch(batch=4, seed=1):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((batch, TINY["max_len"], TINY["n_channels"])).astype(np.float32)
+    t = rng.uniform(1e-5, 1.0, batch).astype(np.float32)
+    return x, t
+
+
+def _schedulers():
+    n = TINY["max_len"]
+    return JaxVP(fourier_noise_scaling=True).with_noise_scaling(n), \
+        VPScheduler(fourier_noise_scaling=True).with_noise_scaling(n, "cpu")
+
+
+@pytest.mark.parametrize("likelihood_weighting", [False, True])
+@pytest.mark.parametrize("reduce_mean", [True, False])
+@pytest.mark.parametrize("weighted", [False, True])
+def test_sde_loss_matches_jax(likelihood_weighting, reduce_mean, weighted):
+    jcfg, variables, net = _pair()
+    jsched, psched = _schedulers()
+    x, t = _batch()
+    key = jax.random.PRNGKey(7)
+    w = np.array([1.0, 0.0, 1.0, 1.0], np.float32) if weighted else None
+    kw = dict(reduce_mean=reduce_mean, likelihood_weighting=likelihood_weighting, train=False)
+    want = jax_sde_loss(_jax_apply(jcfg, variables["constants"]), variables["params"], jsched,
+                        jnp.asarray(x), key, timesteps=jnp.asarray(t),
+                        sample_weight=None if w is None else jnp.asarray(w), **kw)
+    got = sde_loss(net, psched, torch.from_numpy(x), timesteps=torch.from_numpy(t),
+                   noise=torch.from_numpy(_z_of_key(key, x.shape)),
+                   sample_weight=None if w is None else torch.from_numpy(w), **kw)
+    np.testing.assert_allclose(float(got), float(want), rtol=1e-5)
+
+
+def test_sde_loss_draws_t_and_z_from_the_generator():
+    _, _, net = _pair()
+    _, psched = _schedulers()
+    x = torch.from_numpy(_batch()[0])
+    a = sde_loss(net, psched, x, generator=torch.Generator().manual_seed(3))
+    b = sde_loss(net, psched, x, generator=torch.Generator().manual_seed(3))
+    c = sde_loss(net, psched, x, generator=torch.Generator().manual_seed(4))
+    assert float(a) == float(b) != float(c)
+    with pytest.raises(ValueError, match="generator"):
+        sde_loss(net, psched, x)
+
+
+@pytest.mark.parametrize("num_training_steps", [5, 40])
+def test_lr_schedule_matches_optax(num_training_steps):
+    lr_max = 1e-3
+    want = jax_state.make_lr_schedule(lr_max, num_training_steps)
+    got = make_lr_schedule(lr_max, num_training_steps)
+    steps = range(num_training_steps + 3)
+    np.testing.assert_allclose([got(k) for k in steps], [float(want(k)) for k in steps],
+                               rtol=1e-6, atol=1e-7 * lr_max)
+    assert got(0) == 0.0 and got(num_training_steps + 2) == 0.0
+
+
+@pytest.mark.parametrize("scale", [0.1, 10.0], ids=["below-threshold", "above-threshold"])
+def test_clip_by_global_norm_matches_optax(scale):
+    rng = np.random.default_rng(5)
+    grads = [scale * rng.standard_normal(s).astype(np.float32) for s in ((3, 4), (7,), (2, 2, 2))]
+    want, _ = optax.clip_by_global_norm(1.0).update([jnp.asarray(g) for g in grads], None)
+    tensors = [torch.from_numpy(g.copy()) for g in grads]
+    norm = clip_by_global_norm_(tensors, 1.0)
+    np.testing.assert_allclose(float(norm), float(optax.global_norm(grads)), rtol=1e-6)
+    for g, w in zip(tensors, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-6, atol=1e-9)
+    if scale < 1:
+        for g, raw in zip(tensors, grads):
+            np.testing.assert_array_equal(g.numpy(), raw)
+
+
+def _first_divergence(got: dict, want: dict, atol: float, prefix: str = "") -> str | None:
+    for name in sorted(want):
+        g, w = got[name], want[name]
+        if isinstance(w, dict):
+            found = _first_divergence(g, w, atol, f"{prefix}{name}/")
+            if found:
+                return found
+            continue
+        diff = np.abs(np.asarray(g) - np.asarray(w))
+        if diff.max() > atol:
+            idx = np.unravel_index(diff.argmax(), diff.shape)
+            return f"{prefix}{name}{list(idx)}: port {g[idx]!r} vs jax {w[idx]!r}"
+    return None
+
+
+@pytest.mark.parametrize("impl", ["einsum", "blockdiag"])
+def test_three_optimizer_steps_match_jax(pallas_interpret, impl):
+    jcfg, variables, net = _pair(impl)
+    net.train().requires_grad_(True)
+    jsched, psched = _schedulers()
+    x, _ = _batch()
+    num_training_steps, lr_max = 10, 1e-3
+    tx = jax_state.make_optimizer(lr_max, num_training_steps)
+    params = variables["params"]
+    opt_state = tx.init(params)
+    apply_fn = _jax_apply(jcfg, variables["constants"])
+    optimizer = make_optimizer(net.parameters(), lr_max, num_training_steps)
+
+    @jax.jit
+    def jax_step(params, opt_state, key, t):
+        def loss_fn(p):
+            return jax_sde_loss(apply_fn, p, jsched, jnp.asarray(x), key, timesteps=t,
+                                train=True)
+
+        loss, grads = jax.value_and_grad(loss_fn)(params)
+        updates, opt_state = tx.update(grads, opt_state, params)
+        return optax.apply_updates(params, updates), opt_state, loss
+
+    for step in range(3):
+        key = jax.random.PRNGKey(100 + step)
+        t = _batch(seed=10 + step)[1]
+        params, opt_state, want = jax_step(params, opt_state, key, jnp.asarray(t))
+
+        got = sde_loss(net, psched, torch.from_numpy(x), timesteps=torch.from_numpy(t),
+                       noise=torch.from_numpy(_z_of_key(key, x.shape)), train=True)
+        optimizer.zero_grad()
+        got.backward()
+        optimizer.step()
+        np.testing.assert_allclose(float(got.detach()), float(want), rtol=1e-4,
+                                   err_msg=f"step {step}")
+
+    port = state_dict_to_jax_variables(net.state_dict())["params"]
+    divergence = _first_divergence(port, jax.tree.map(np.asarray, params), atol=1e-4)
+    assert divergence is None, f"first parameter past 1e-4: {divergence}"
+
+
+def test_numpy_loader_batches_are_bit_identical_to_jax():
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((37, 8, 2)).astype(np.float32)
+    pj = JaxLoader(JaxDataset(x, standardize=True), 10, shuffle=True, seed=3)
+    pp = NumpyLoader(DiffusionDataset(x, standardize=True), 10, shuffle=True, seed=3)
+    assert len(pp) == len(pj) == 4
+    for _ in range(2):  # each epoch draws a new permutation
+        batches = list(pp)
+        assert [len(b) for b in batches] == [10, 10, 10, 7]
+        for a, b in zip(batches, pj):
+            np.testing.assert_array_equal(a, b)
+    pj.skip_epochs(2)
+    pp.skip_epochs(2)
+    for a, b in zip(pp, pj):
+        np.testing.assert_array_equal(a, b)
+    ds = DiffusionDataset(x, standardize=True)
+    assert len(ds) == 37
+    np.testing.assert_array_equal(ds[5]["X"], JaxDataset(x, standardize=True)[5]["X"])
+
+
+def test_datamodule_loaders_and_parameters_match_jax(tmp_path):
+    kw = dict(max_len=16, num_samples=50, batch_size=16, fourier_transform=True,
+              standardize=True, random_seed=3)
+    j = JaxSynthetic(data_dir=tmp_path / "jax", **kw)
+    p = SyntheticDatamodule(tmp_path / "port", **kw)
+    for dm in (j, p):
+        dm.prepare_data()
+        dm.setup()
+    assert p.dataset_parameters == j.dataset_parameters
+    assert get_training_params(p, 3) == jax_training_params(j, 3)
+    for pl, jl in ((p.val_dataloader(), j.val_dataloader()),
+                   (p.test_dataloader(), j.test_dataloader()),
+                   (p.train_dataloader(), j.train_dataloader())):
+        pb, jb = list(pl), list(jl)
+        assert [b.shape for b in pb] == [b.shape for b in jb]
+        for a, b in zip(pb, jb):
+            np.testing.assert_allclose(a, b, atol=1e-5)
+
+
+def test_dropout_is_drawn_from_the_generator_and_off_in_eval():
+    _, _, net = _pair(dropout=0.1)
+    x, t = (torch.from_numpy(a) for a in _batch())
+
+    def run(train, seed):
+        return net(x, t, train=train, generator=torch.Generator().manual_seed(seed))
+
+    torch.testing.assert_close(run(False, 0), run(False, 1), rtol=0, atol=0)
+    torch.testing.assert_close(run(True, 0), run(True, 0), rtol=0, atol=0)
+    assert not torch.allclose(run(True, 0), run(False, 0))
+    assert not torch.allclose(run(True, 0), run(True, 1))
+    torch.testing.assert_close(net(x, t, train=True), run(False, 0), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("impl", ["einsum", "blockdiag"])
+def test_trainer_fit_on_cpu(tmp_path, impl):
+    dm = SyntheticDatamodule(tmp_path / "data", max_len=16, num_samples=40, batch_size=16,
+                             fourier_transform=True, standardize=True)
+    dm.prepare_data()
+    dm.setup()
+    cfg = ScoreModelConfig(**dict(TINY, attention_impl=impl))
+    scheduler = VPScheduler(fourier_noise_scaling=True).with_noise_scaling(16, "cpu")
+    net = init_score_model(cfg, torch.Generator().manual_seed(0), device="cpu")
+    before = {k: v.clone() for k, v in net.state_dict().items()}
+    model = ScoreModel(cfg, net, scheduler,
+                       num_training_steps=get_training_params(dm, 2)["num_training_steps"])
+    trainer = Trainer(max_epochs=2, run_dir=tmp_path / "runs", run_id="r", seed=1,
+                      log_every_n_steps=2)
+    assert trainer.fit(model, dm) is model
+
+    records = [json.loads(line) for line in trainer.metrics_path.read_text().splitlines()]
+    epochs = [r for r in records if "val/loss" in r]
+    steps = [r for r in records if "train/loss" in r]
+    assert [r["epoch"] for r in epochs] == [0, 1] and len(steps) == 3
+    assert set(epochs[0]) == {"step", "epoch", "train/loss_epoch", "val/loss", "epoch_time_s", "lr"}
+    assert set(steps[0]) == {"step", "epoch", "train/loss", "lr"}
+    losses = [r[k] for r in records for k in ("train/loss", "train/loss_epoch", "val/loss") if k in r]
+    assert np.isfinite(losses).all()
+    assert trainer.best_val_loss == min(r["val/loss"] for r in epochs)
+
+    trained = model.network
+    assert trained is not net and not trained.training
+    assert not any(p.requires_grad for p in trained.parameters())
+    assert any(not torch.equal(v, before[k]) for k, v in trained.state_dict().items())
+    torch.testing.assert_close(net.state_dict(), before, rtol=0, atol=0)
+    samples = DiffusionSampler(model, 4).sample(4, 20, generator=torch.Generator().manual_seed(0))
+    assert samples.shape == (4, 16, 1) and bool(torch.isfinite(samples).all())
+
+
+def test_trainer_keeps_the_best_val_parameters(tmp_path, monkeypatch):
+    """With val losses 0.5 then 0.9 the returned network holds epoch 0's
+    parameters, as the JAX trainer keeps the best checkpoint."""
+    dm = SyntheticDatamodule(tmp_path / "data", max_len=16, num_samples=16, batch_size=16)
+    dm.prepare_data()
+    dm.setup()
+    cfg = ScoreModelConfig(**TINY)
+    net = init_score_model(cfg, torch.Generator().manual_seed(0), device="cpu")
+    model = ScoreModel(cfg, net, VPScheduler().with_noise_scaling(16, "cpu"),
+                       num_training_steps=4)
+    from fdtpu_torch.train import trainer as trainer_mod
+
+    snapshots, vals = [], iter([0.5, 0.9])
+    real_loss = trainer_mod.sde_loss
+
+    def fake_loss(network, *args, train=True, **kw):
+        if train:
+            return real_loss(network, *args, train=train, **kw)
+        snapshots.append({k: v.clone() for k, v in network.state_dict().items()})
+        return torch.tensor(next(vals))
+
+    monkeypatch.setattr(trainer_mod, "sde_loss", fake_loss)
+    trainer = Trainer(max_epochs=2, run_dir=tmp_path, run_id="r", seed=0)
+    trainer.fit(model, dm)
+    assert trainer.best_val_loss == 0.5
+    torch.testing.assert_close(model.network.state_dict(), snapshots[0], rtol=0, atol=0)
+    assert not all(torch.equal(snapshots[0][k], v) for k, v in snapshots[1].items())
+
+
+def test_scheduler_add_noise_matches_jax():
+    jsched, psched = _schedulers()
+    x, t = _batch()
+    noise = np.random.default_rng(2).standard_normal(x.shape).astype(np.float32)
+    want = jsched.add_noise(jnp.asarray(x), jnp.asarray(noise), jnp.asarray(t))
+    got = psched.add_noise(torch.from_numpy(x), torch.from_numpy(noise), torch.from_numpy(t))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6, atol=1e-7)
+    assert dataclasses.is_dataclass(psched) and psched.T == jsched.T == 1.0
