@@ -12,9 +12,10 @@ Phases (any failure exits non-zero and prints no result):
    ``nvcc`` per source, in parallel.
 2. Kernels: each hand-written kernel against its plain PyTorch version on the
    card, at the main path's shapes (B1 at the serving batch, B2 at the
-   training batch), with its time, the plain version's time, a one-call
-   PyTorch yardstick (``library_ms``, timed only) and the least time the
-   card could take (``bound_ms``); then B3, the autograd Function over B1
+   training batch, B4 at the token level's rows against all keys and at the
+   KV level's square shape), with its time, the plain version's time, a
+   one-call PyTorch yardstick (``library_ms``, timed only) and the least time
+   the card could take (``bound_ms``); then B3, the autograd Function over B1
    and B2, against autograd through the plain forward.
 3. Slice: the flagship score model (d_model 72, 10 layers, 12 heads, FFN
    2048, 187 frequency tokens; random weights from a seed) on CUDA with the
@@ -24,7 +25,16 @@ Phases (any failure exits non-zero and prints no result):
    batches of 128; kernel launches counted on each chain; samples
    de-standardized with the synthetic train-set statistics and taken back to
    the time domain.
-4. Training: one training step's parameter gradients on the kernel path
+4. Token and KV levels: a 50-step token-level chain on CUDA against the CPU
+   (the same noise and probe uniforms; the same mode at every step); the
+   token level at ``cli/ablation_cache.py``'s ``token_full`` arm (256
+   samples, batches of 128) and the KV level's event arm (``kv_event_arm(10)``)
+   and macro policy (``cli/benchmark_cache.py``) on one batch of 128, T = 1000
+   steps each, with B1 counted once per layer and FULL step and B4 once per
+   layer and TOPK, MIXED or CACHED step; the cost of the K/V store's
+   transposed copy after a blockdiag refresh; where a 200-step token-level
+   window's time goes.
+5. Training: one training step's parameter gradients on the kernel path
    against the einsum path; then ``Trainer.fit`` of the flagship for 2
    epochs (2000 synthetic samples, batch 64: 32 train and 32 val batches an
    epoch) with finite, falling loss and the kernel launches counted (B2 once
@@ -54,6 +64,13 @@ PEAK_HBM_BYTES = 3.35e12
 
 # The score-level E²-CRF operating point served by bench.py (CACHE_KWARGS).
 CACHE_KWARGS = {"level": "score", "R": 100, "tau_0": 1.35, "eps_order": 1}
+# The token level's "token_full" arm (cli/ablation_cache.py:60); the KV
+# level's calibrated event arm kv_event_arm(10.0) (cli/ablation_cache.py:80-87)
+# and its macro policy (cli/benchmark_cache.py:153).
+TOKEN_KWARGS = {"level": "token", "token_budget": 24, "tau_0": 0.5, "R": 100}
+KV_EVENT_KWARGS = {"level": "kv", "policy": "event", "K": 0, "R": 100, "tau_0": 10.0,
+                   "tau_warn": 1e9}
+KV_MACRO_KWARGS = {"level": "kv", "policy": "macro", "K": 5, "R": 10}
 FLAGSHIP = dict(batch=128, seq=187, n_head=12, head_dim=6)
 # bench.py's training protocol: 2000 synthetic samples in batches of 64.
 TRAIN_FLAGSHIP = dict(batch=64, seq=187, n_head=12, head_dim=6)
@@ -96,13 +113,17 @@ def time_ms(torch, fn, reps: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
-def attention_bound_ms(batch, seq, n_head, head_dim, itemsize, bf16) -> tuple[float, str]:
-    """Least time for one blockdiag_mha call: q, k, v read once and out
-    written once, against 4·B·H·T²·Dh score/value FLOPs at the input type's
-    peak plus B·H·T² float32 exps at the float32 peak."""
-    n_bytes = 4 * batch * seq * n_head * head_dim * itemsize
-    flops = 4 * batch * n_head * seq * seq * head_dim
-    exps = batch * n_head * seq * seq
+def attention_bound_ms(batch, seq, n_head, head_dim, itemsize, bf16,
+                       kv_len=None) -> tuple[float, str]:
+    """Least time for one attention call (blockdiag_mha, fused_mha) of
+    ``seq`` query rows against ``kv_len`` keys (default ``seq``): q, k, v
+    read once and out written once, against 4·B·H·Tq·Tk·Dh score/value FLOPs
+    at the input type's peak plus B·H·Tq·Tk float32 exps at the float32
+    peak."""
+    kv_len = seq if kv_len is None else kv_len
+    n_bytes = 2 * batch * (seq + kv_len) * n_head * head_dim * itemsize
+    flops = 4 * batch * n_head * seq * kv_len * head_dim
+    exps = batch * n_head * seq * kv_len
     t_bytes = n_bytes / PEAK_HBM_BYTES
     t_ops = flops / (PEAK_BF16_FLOPS if bf16 else PEAK_FP32_FLOPS) + exps / PEAK_FP32_FLOPS
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes > t_ops else "operations")
@@ -170,6 +191,49 @@ def kernel_phase(torch, bda) -> list[dict]:
                    library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)
         print("kernel", json.dumps(rec), flush=True)
         results.append(rec)
+    return results
+
+
+def mha_kernel_phase(torch, mha) -> list[dict]:
+    """B4 against its plain version at the token level's TOPK shape (24 rows
+    against 187 keys), the KV level's square shape and T = 501."""
+    import torch.nn.functional as F
+
+    g = torch.Generator(device="cuda").manual_seed(12)
+    b, t, h, dh = FLAGSHIP.values()
+    # Tolerances: float32 sums in another order than the plain version's
+    # einsums, exp2 of pre-scaled scores: 2e-4, B1's bound; bfloat16 inputs
+    # and weights against the float32 plain version of the unrounded inputs
+    # (8-bit rounding of values of magnitude ~3): 5e-2.
+    cases = [("topk", (b, 24, t)), ("square", (b, t, t)), ("t501", (16, 501, 501))]
+    results = []
+    for name, (batch, tq, tk) in cases:
+        q32 = torch.randn((batch, tq, h, dh), generator=g, device="cuda")
+        k32 = torch.randn((batch, tk, h, dh), generator=g, device="cuda")
+        v32 = torch.randn((batch, tk, h, dh), generator=g, device="cuda")
+        for dtype, tol in ((torch.float32, 2e-4), (torch.bfloat16, 5e-2)):
+            q, k, v = (a.to(dtype) for a in (q32, k32, v32))
+            out = mha.fused_mha_cuda(q, k, v)
+            torch.cuda.synchronize()
+            err = float((out.float() - mha.mha_plain(q32, k32, v32)).abs().max())
+            label = f"{name}_{str(dtype).split('.')[-1]}"
+            check(bool(torch.isfinite(out).all()), f"{label}: B4 output not finite")
+            check(err <= tol, f"{label}: B4 max_abs_err {err:.3g} > {tol}")
+            qh, kh, vh = (a.transpose(1, 2).contiguous() for a in (q, k, v))
+
+            def library():
+                return F.scaled_dot_product_attention(qh, kh, vh)
+
+            bound_ms, bound_by = attention_bound_ms(batch, tq, h, dh, q.element_size(),
+                                                    dtype == torch.bfloat16, kv_len=tk)
+            rec = dict(case=label, shape=[batch, tq, tk, h, dh], dtype=str(dtype).split(".")[-1],
+                       max_abs_err=err, tol=tol,
+                       kernel_ms=time_ms(torch, lambda: mha.fused_mha_cuda(q, k, v)),
+                       plain_ms=time_ms(torch, lambda: mha.mha_plain(q, k, v)),
+                       library_ms=time_ms(torch, library),
+                       bound_ms=bound_ms, bound_by=bound_by)
+            print("kernel_mha", json.dumps(rec), flush=True)
+            results.append(rec)
     return results
 
 
@@ -405,6 +469,130 @@ def slice_phase(torch, bda) -> dict:
     return chains
 
 
+def recording(module, name: str, keep):
+    """Wrap ``module.name`` so that ``keep(result)`` of each call is appended
+    to the returned list; the second value undoes the wrapping."""
+    orig = getattr(module, name)
+    kept = []
+
+    def wrapped(*args):
+        out = orig(*args)
+        kept.append(keep(out))
+        return out
+
+    setattr(module, name, wrapped)
+    return kept, lambda: setattr(module, name, orig)
+
+
+def levels_phase(torch, bda, mha) -> dict:
+    """The token and KV levels of the E²-CRF cache at the flagship: a short
+    token chain on CUDA against the CPU, the three T = 1000 chains with their
+    kernel launches counted, the K/V transpose after a blockdiag refresh, and
+    a 200-step token-level window's device time."""
+    from fdtpu_torch.cache import E2CRFConfig
+    from fdtpu_torch.diffusion import VPScheduler
+    from fdtpu_torch.models import ScoreModel, ScoreModelConfig, init_score_model
+    from fdtpu_torch.sampling import DiffusionSampler, sample_chain
+    from fdtpu_torch.sampling import sampler as psampler
+
+    cfg = ScoreModelConfig(n_channels=1, max_len=FLAGSHIP["seq"], attention_impl="blockdiag")
+    net = init_score_model(cfg, torch.Generator().manual_seed(0))
+    net_cpu = init_score_model(cfg, torch.Generator().manual_seed(0), device="cpu")
+    scheduler = VPScheduler(fourier_noise_scaling=True).with_noise_scaling(cfg.max_len, "cuda")
+    model = ScoreModel(config=cfg, network=net, scheduler=scheduler)
+    layers = cfg.num_layers
+
+    # A short token-level chain, CUDA kernels against the CPU plain versions,
+    # with the same noise and probe uniforms: the same mode at every step.
+    g = torch.Generator(device="cuda").manual_seed(4)
+    n_short, b_short = 50, 4
+    z = torch.randn((n_short + 1, b_short, cfg.max_len, 1), generator=g, device="cuda").cpu()
+    u = torch.rand((n_short, cfg.max_len), generator=g, device="cuda").cpu()
+    x0 = scheduler.prior_sampling((b_short, cfg.max_len, 1), noise=z[0].cuda())
+    runs = {}
+    for dev, network, sched in (("cuda", net, scheduler),
+                                ("cpu", net_cpu, VPScheduler(fourier_noise_scaling=True))):
+        modes, undo_modes = recording(psampler, "token_policy", lambda out: out[0])
+        rows, undo_rows = recording(psampler, "_topk_rows", lambda idx: sorted(idx.tolist()))
+        try:
+            x, _ = sample_chain(network, sched, x0.to(dev), cache_cfg=E2CRFConfig(**TOKEN_KWARGS),
+                                num_steps=n_short, step_noise=z[1:], probe_noise=u)
+        finally:
+            undo_modes()
+            undo_rows()
+        runs[dev] = (x.cpu(), modes, rows)
+    diverged = [i for i, (a, b) in enumerate(zip(runs["cuda"][1], runs["cpu"][1])) if a != b]
+    rows_differ = [i for i, (a, b) in enumerate(zip(runs["cuda"][2], runs["cpu"][2])) if a != b]
+    rel = float((runs["cuda"][0] - runs["cpu"][0]).abs().max() / runs["cpu"][0].abs().max())
+    modes = "".join(map(str, runs["cuda"][1]))
+    print(f"levels: {n_short}-step token chain CUDA vs CPU: modes {modes}, first divergence "
+          f"{diverged[:1]}, first TOPK step with other rows {rows_differ[:1]} of "
+          f"{len(runs['cuda'][2])}, max rel err {rel:.3g}", flush=True)
+    check(not diverged, f"token chain CUDA vs CPU: modes diverge first at step {diverged[:1]}")
+    check(not rows_differ, f"token chain CUDA vs CPU: TOPK rows differ first at {rows_differ[:1]}")
+    # Tolerance 5e-4, not the uncached chain's 1e-4: the VP std at the last
+    # step, t = 1e-5, is sqrt(1 - exp(-1e-6)) (the JAX package's formula), so
+    # a one-ulp difference between the card's and the CPU's exp is ~3% of it,
+    # and the token level's last score is -eps/std (1.39e-4 measured on the
+    # H100; the same chain through two CPU attention paths agrees to 7e-7).
+    check(rel <= 5e-4, f"token chain CUDA vs CPU rel err {rel:.3g} > 5e-4")
+
+    chains = {}
+    for name, kwargs, num_samples in (("token", TOKEN_KWARGS, NUM_SAMPLES),
+                                      ("kv-event", KV_EVENT_KWARGS, SAMPLE_BATCH),
+                                      ("kv-macro", KV_MACRO_KWARGS, SAMPLE_BATCH)):
+        sampler = DiffusionSampler(model, SAMPLE_BATCH, use_cache=True, cache_kwargs=kwargs)
+        gen = torch.Generator(device="cuda").manual_seed(2)
+        torch.cuda.synchronize()
+        bda.launches = mha.launches = 0
+        t0 = time.perf_counter()
+        samples = sampler.sample(num_samples, NUM_STEPS, generator=gen)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        b1, b4 = bda.launches, mha.launches
+        stats = sampler.get_cache_stats()
+        steps = NUM_STEPS * (num_samples // SAMPLE_BATCH)
+        check(tuple(samples.shape) == (num_samples, cfg.max_len, 1),
+              f"{name}: samples shape {tuple(samples.shape)}")
+        check(bool(torch.isfinite(samples).all()), f"{name}: samples not finite")
+        # B4 serves TOPK (counted as mixed steps) at the token level and
+        # MIXED and CACHED at the KV level; skipped token steps run nothing.
+        b4_steps = stats["mixed_steps"] + (stats["cached_steps"] if name != "token" else 0)
+        check(b1 == layers * stats["full_steps"],
+              f"{name}: {b1} B1 launches for {stats['full_steps']} FULL steps x {layers} layers")
+        check(b4 == layers * b4_steps, f"{name}: {b4} B4 launches for {b4_steps} steps x {layers}")
+        check(b4 > 0, f"{name}: B4 never launched")
+        chains[name] = dict(seconds=seconds, samples_per_s=num_samples / seconds,
+                            ms_per_step=1e3 * seconds / steps, launches_b1=b1, launches_b4=b4,
+                            full_steps=stats["full_steps"], mixed_steps=stats["mixed_steps"],
+                            cached_steps=stats["cached_steps"], cache_stats=stats)
+        print(f"chain {name}", json.dumps(chains[name]), flush=True)
+
+    # The K/V store keeps (B, T, H, Dh); a blockdiag refresh computes K and V
+    # in B1's layouts and copies them in transposed, once per layer.
+    b, t, h, dh = FLAGSHIP.values()
+    k2 = torch.randn((b, h, dh, t), device="cuda")
+    v2 = torch.randn((b, h, t, dh), device="cuda")
+    store = torch.empty((2, b, t, h, dh), device="cuda")
+
+    def transpose():
+        store[0].copy_(k2.permute(0, 3, 1, 2))
+        store[1].copy_(v2.permute(0, 2, 1, 3))
+
+    transpose_ms = time_ms(torch, transpose)
+    print(f"levels: K/V transpose after a blockdiag refresh {transpose_ms:.4f} ms per layer, "
+          f"{layers * transpose_ms:.4f} ms per FULL step", flush=True)
+
+    window = DiffusionSampler(model, SAMPLE_BATCH, use_cache=True, cache_kwargs=TOKEN_KWARGS)
+    device_breakdown(
+        torch, "token-chain-200-steps",
+        lambda: window.sample(SAMPLE_BATCH, 200, generator=torch.Generator("cuda").manual_seed(3)),
+        reps=1, top=8,
+    )
+    chains["transpose_ms"] = transpose_ms
+    return chains
+
+
 def train_phase(torch, bda) -> dict:
     """The flagship's training path: one step's gradients, kernel path
     against einsum path; 2 epochs of ``Trainer.fit``; train throughput."""
@@ -535,6 +723,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(Path(__file__).resolve().parent))
     try:
+        from fdtpu_torch.kernels import attention as mha
         from fdtpu_torch.kernels import blockdiag_attention as bda
         from fdtpu_torch.kernels import build
     except ImportError as exc:
@@ -548,14 +737,17 @@ def main() -> int:
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}", flush=True)
     t0 = time.perf_counter()
-    build.build([bda.SOURCE, bda.SOURCE_BWD], verbose=True)
+    build.build([bda.SOURCE, bda.SOURCE_BWD, mha.SOURCE], verbose=True)
     print(f"build: {time.perf_counter() - t0:.1f} s", flush=True)
 
     kernel_results = kernel_phase(torch, bda)
+    mha_results = mha_kernel_phase(torch, mha)
     bwd_results = bwd_kernel_phase(torch, bda)
     trainable = trainable_phase(torch, bda)
     chains = slice_phase(torch, bda)
+    levels = levels_phase(torch, bda, mha)
     train = train_phase(torch, bda)
+    level_chains = [c for c in levels.values() if isinstance(c, dict)]
 
     def kernel_record(name, source, replaces, launches, results):
         fp32 = [r for r in results if r["dtype"] == "float32"]
@@ -569,8 +761,12 @@ def main() -> int:
     records = [
         kernel_record("blockdiag_mha", "fdtpu_torch/kernels/csrc/blockdiag_attention.cu",
                       "fdtpu/kernels/blockdiag_attention.py:221",
-                      sum(c["launches"] for c in chains.values()) + train["launches"],
+                      sum(c["launches"] for c in chains.values()) + train["launches"]
+                      + sum(c["launches_b1"] for c in level_chains),
                       kernel_results),
+        kernel_record("fused_mha", "fdtpu_torch/kernels/csrc/fused_attention.cu",
+                      "fdtpu/kernels/attention.py:80",
+                      sum(c["launches_b4"] for c in level_chains), mha_results),
         kernel_record("blockdiag_mha_bwd", "fdtpu_torch/kernels/csrc/blockdiag_attention_bwd.cu",
                       "fdtpu/kernels/blockdiag_attention.py:373", train["launches_bwd"],
                       bwd_results),

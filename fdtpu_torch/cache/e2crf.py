@@ -1,27 +1,41 @@
-"""E²-CRF score-level cache (port of ``fdtpu/cache/e2crf.py:67-382, 458-486,
-545-608, 714-784``).
+"""E²-CRF cache at the score, token and KV levels (port of
+``fdtpu/cache/e2crf.py:67-784``, without FreqCa).
 
-The score level skips the network on whole diffusion steps: a skipped step
-rebuilds the score from an extrapolated noise prediction ε̂ rescaled by the
-current marginal std (score(t) = −ε̂ / std(t)).  Skipping continues while the
-accumulated predicted ε̂ drift stays under τ₀ and the hard interval R has not
-expired (error feedback); every refresh measures the realized extrapolation
-error for the guard.
+* Score level: a skipped step rebuilds the score from an extrapolated noise
+  prediction ε̂ rescaled by the current marginal std (score(t) = −ε̂ / std(t)).
+  Skipping continues while the accumulated predicted ε̂ drift stays under τ₀
+  and the hard interval R has not expired (error feedback); every refresh
+  measures the realized extrapolation error for the guard.
+* Token level (:func:`token_policy`): each step is FULL (refresh every token
+  and the K/V store), TOPK (recompute the ``token_budget`` highest-priority
+  tokens) or SKIP (extrapolate every token's ε̂).
+* KV level (:func:`macro_policy`, :func:`event_policy`,
+  :func:`update_after_forward`): every step runs the network, in MODE_FULL,
+  MODE_MIXED (fresh K/V for the masked tokens) or MODE_CACHED (stored K/V).
 
 The state is a dataclass of tensors on the sampling device.  Its float
-statistics (``err_acc``, ``drift_rate``, ``eps_gap``, ``eps_norm_ref`` …) are
-float32 0-d tensors, as in the JAX package, so the skip decision near τ₀ is
-taken on the same float32 values; the integer counters and the ``cold`` flag
-are host values.  Only ``level="score"`` is ported; the token and KV levels
-are still to port (ROADMAP.md).
+statistics (``err_acc``, ``drift_rate``, ``delta_tok``, ``eps_norm_ref`` …)
+are float32 tensors, as in the JAX package, so every decision near τ₀ is
+taken on the same float32 values; the step counters and the ``cold`` flag are
+host values, and each policy reads the device at most once a step.  Fields a
+level does not use are zero-size placeholders with the JAX package's shapes.
+FreqCa (``use_freqca``) is still to port (ROADMAP.md).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any
+from typing import Any, Optional, Union
 
 import torch
+
+MODE_FULL = 0
+MODE_MIXED = 1
+MODE_CACHED = 2
+
+TOKEN_FULL = 0
+TOKEN_TOPK = 1
+TOKEN_SKIP = 2
 
 
 @dataclasses.dataclass(frozen=True)
@@ -97,8 +111,16 @@ class PolicyParams:
 
 @dataclasses.dataclass(frozen=True)
 class CacheState:
-    """Score-level cache state (the score-level fields of the JAX pytree)."""
+    """Cache state (the JAX pytree's fields without FreqCa's history ring)."""
 
+    k: torch.Tensor  # (num_layers, B, T, H, Dh) K store, token and KV levels
+    v: torch.Tensor  # (num_layers, B, T, H, Dh) V store
+    crf_prev: torch.Tensor  # (num_layers, T, d_model) KV level: last step's hidden states (batch 0)
+    # Per-token drift: KV level the CRF drift of the last step; token level
+    # each token's relative ε̂ extrapolation-residual rate at its last recompute.
+    delta_tok: torch.Tensor  # (T,)
+    gap_tok: torch.Tensor  # (T,) token level: steps between a token's last two recomputes
+    last_tok: torch.Tensor  # (T,) int32, token level: step of each token's last recompute
     eps_hat: torch.Tensor  # (B, T, C) last fully computed noise prediction
     eps_prev: torch.Tensor  # (B, T, C) the full computation before eps_hat
     eps_prev2: torch.Tensor  # (B, T, C) the one before eps_prev
@@ -117,13 +139,28 @@ class CacheState:
     realized_err_sum: torch.Tensor  # ()
     predicted_err_sum: torch.Tensor  # ()
     realized_err_max: torch.Tensor  # ()
-    guard_measurements: int
+    # A host int until the first guard measurement, an int32 0-d tensor after.
+    guard_measurements: Union[int, torch.Tensor]
     overrun: torch.Tensor  # () high-water mark of realized/predicted
-    eps_norm_ref: torch.Tensor  # () high-water mark of the refresh-time ‖ε̂‖
-    eps_norm_cold: torch.Tensor  # () ‖ε̂‖ at the cold refresh
+    # () high-water mark of the refresh-time ‖ε̂‖, and ‖ε̂‖ at the cold
+    # refresh; per token, (T,), at the token level.
+    eps_norm_ref: torch.Tensor
+    eps_norm_cold: torch.Tensor
 
     def replace(self, **changes) -> "CacheState":
         return dataclasses.replace(self, **changes)
+
+
+def check_level(cfg: E2CRFConfig) -> None:
+    """A level this package runs: score, token or KV, the latter without
+    FreqCa."""
+    if cfg.level not in ("score", "token", "kv"):
+        raise ValueError(f"level must be 'score', 'token' or 'kv', got {cfg.level!r}")
+    if cfg.level == "kv" and cfg.use_freqca:
+        raise NotImplementedError(
+            "level='kv' with use_freqca=True: FreqCa is not ported yet "
+            "(ROADMAP.md: FreqCa and FreSca)"
+        )
 
 
 def init_cache_state(
@@ -132,20 +169,43 @@ def init_cache_state(
     max_len: int,
     n_channels: int,
     device=None,
+    *,
+    num_layers: int = 0,
+    n_head: int = 0,
+    head_dim: int = 0,
+    d_model: int = 0,
+    kv_dtype: torch.dtype = torch.float32,
 ) -> CacheState:
-    if cfg.level != "score":
-        raise NotImplementedError(
-            f"level={cfg.level!r}: only the score level is ported; the token "
-            "and KV levels are ROADMAP.md items"
-        )
+    """Allocate the state the configured level uses, with the JAX package's
+    shapes; unused fields are zero-size placeholders.  The token and KV
+    levels need the model's ``num_layers``, ``n_head``, ``head_dim`` and
+    (KV level) ``d_model``; ``kv_dtype``, the K/V store's and ``crf_prev``'s
+    dtype, should be the model's compute dtype."""
+    check_level(cfg)
+    level = cfg.level
+    if level in ("token", "kv") and min(num_layers, n_head, head_dim) < 1:
+        raise ValueError(f"level={level!r} needs num_layers, n_head and head_dim")
+    if level == "kv" and d_model < 1:
+        raise ValueError("level='kv' needs d_model")
 
-    def zeros(*shape) -> torch.Tensor:
-        return torch.zeros(shape, dtype=torch.float32, device=device)
+    def zeros(*shape, dtype=torch.float32) -> torch.Tensor:
+        return torch.zeros(shape, dtype=dtype, device=device)
 
+    kv_shape = (num_layers, batch, max_len, n_head, head_dim) if level != "score" else (0,)
+    crf_shape = (num_layers, max_len, d_model) if level == "kv" else (0,)
+    eps_shape = (batch, max_len, n_channels) if level != "kv" else (0,)
+    tok_shape = (max_len,) if level == "token" else (0,)
+    norm_shape = (max_len,) if level == "token" else ()
     return CacheState(
-        eps_hat=zeros(batch, max_len, n_channels),
-        eps_prev=zeros(batch, max_len, n_channels),
-        eps_prev2=zeros(batch, max_len, n_channels),
+        k=zeros(*kv_shape, dtype=kv_dtype),
+        v=zeros(*kv_shape, dtype=kv_dtype),
+        crf_prev=zeros(*crf_shape, dtype=kv_dtype),
+        delta_tok=zeros(max_len),
+        gap_tok=zeros(*tok_shape),
+        last_tok=zeros(*tok_shape, dtype=torch.int32),
+        eps_hat=zeros(*eps_shape),
+        eps_prev=zeros(*eps_shape),
+        eps_prev2=zeros(*((batch, max_len, n_channels) if level == "score" else (0,))),
         eps_gap=zeros(),
         eps_gap2=zeros(),
         drift_rate=zeros(),
@@ -163,9 +223,64 @@ def init_cache_state(
         realized_err_max=zeros(),
         guard_measurements=0,
         overrun=torch.ones((), dtype=torch.float32, device=device),
-        eps_norm_ref=zeros(),
-        eps_norm_cold=zeros(),
+        eps_norm_ref=zeros(*norm_shape),
+        eps_norm_cold=zeros(*norm_shape),
     )
+
+
+# ----------------------------------------------------------------- policies
+def macro_policy(
+    pp: PolicyParams, state: CacheState, max_len: int, device=None
+) -> tuple[int, torch.Tensor, int]:
+    """The reference's live KV policy: step 0 → FULL; every ``500 if R < 100
+    else R`` global steps → MIXED over the first min(2K, T) tokens;
+    otherwise → CACHED.  Decided on the host.  Returns ``(mode, mask (T,)
+    bool, number of masked tokens)``."""
+    step = state.step
+    refresh_count = min(2 * min(pp.K, max_len), max_len)
+    interval = 500 if pp.R < 100 else pp.R
+    if step == 0:
+        mode, count = MODE_FULL, max_len
+    elif step % interval == 0:
+        mode, count = MODE_MIXED, refresh_count
+    else:
+        mode, count = MODE_CACHED, 0
+    return mode, torch.arange(max_len, device=device) < count, count
+
+
+def event_policy(
+    cfg: E2CRFConfig,
+    pp: PolicyParams,
+    state: CacheState,
+    x: torch.Tensor,
+    probe_u: Optional[torch.Tensor] = None,
+) -> tuple[int, torch.Tensor, int]:
+    """Event-driven KV policy: the tokens whose energy-weighted CRF drift
+    exceeds τ₀, ∪ the K lowest-frequency tokens, ∪ a random probe fraction
+    (``probe_u`` (T,) uniforms, read when the probe ratio is positive) are
+    recomputed (MIXED, or CACHED if none); a full refresh at step 0, every R
+    steps, or when the mean drift exceeds τ_warn.  One host read unless the
+    step counters decide a refresh.  Returns ``(mode, mask, number of masked
+    tokens)``."""
+    max_len = x.shape[1]
+    ones = torch.ones((max_len,), dtype=torch.bool, device=x.device)
+    if state.step == 0 or state.step - state.last_full_step >= pp.R:
+        return MODE_FULL, ones, max_len
+    if cfg.energy_weighting:
+        energy = torch.mean(x**2, dim=(0, 2))  # (T,)
+        energy_w = energy / (torch.mean(energy) + 1e-8)
+    else:
+        energy_w = torch.ones((max_len,), dtype=x.dtype, device=x.device)
+    mask = (state.delta_tok * energy_w > pp.tau_0) | (
+        torch.arange(max_len, device=x.device) < min(pp.K, max_len)
+    )
+    if cfg.resolved_random_probe_ratio > 0.0:
+        mask = mask | (probe_u < pp.random_probe_ratio)
+    is_warn = torch.mean(state.delta_tok) > pp.tau_warn
+    warn, count = torch.stack([is_warn.to(torch.int64), mask.sum()]).tolist()
+    if warn:
+        return MODE_FULL, ones, max_len
+    return (MODE_MIXED if count else MODE_CACHED), mask, count
 
 
 def effective_tau(cfg: E2CRFConfig, pp: PolicyParams, state: CacheState) -> torch.Tensor:
@@ -192,6 +307,38 @@ def score_skip_decision(cfg: E2CRFConfig, pp: PolicyParams, state: CacheState) -
     return bool(decide)
 
 
+def token_policy(
+    cfg: E2CRFConfig, pp: PolicyParams, state: CacheState, x: torch.Tensor
+) -> tuple[int, torch.Tensor, torch.Tensor]:
+    """Step mode of the token level: TOKEN_FULL on a cold cache, on the
+    calibration step right after a refresh whose per-token rates are all 0,
+    or when R expired; TOKEN_SKIP while the predicted accumulated error
+    ``mean(w_drift × (age + 1))`` stays within the budget; else TOKEN_TOPK.
+
+    Returns ``(mode, w_drift (T,), mean_drift ())``, float32, with the
+    energy-weighted drift ``w_drift``.  One host read unless the host
+    counters decide a refresh."""
+    max_len = x.shape[1]
+    if cfg.energy_weighting:
+        energy = torch.mean(x.float() ** 2, dim=tuple(i for i in range(x.ndim) if i != 1))
+        energy_w = energy / (torch.mean(energy) + 1e-8)
+    else:
+        energy_w = torch.ones((max_len,), dtype=torch.float32, device=x.device)
+    w_drift = state.delta_tok.float() * energy_w
+    mean_drift = torch.mean(w_drift)
+    since_full = state.step - state.last_full_step
+    if state.cold or since_full >= pp.R:
+        return TOKEN_FULL, w_drift, mean_drift
+    age_next = (state.step - state.last_tok + 1).float()
+    skip = torch.mean(w_drift * age_next) <= effective_tau(cfg, pp, state)
+    if since_full == 1:
+        calibration = torch.sum(state.delta_tok) == 0
+        calibration, skip = torch.stack([calibration, skip]).tolist()
+        if calibration:
+            return TOKEN_FULL, w_drift, mean_drift
+    return (TOKEN_SKIP if bool(skip) else TOKEN_TOPK), w_drift, mean_drift
+
+
 # Per-measurement floor on the predicted budget in the overrun ratio.
 GUARD_PREDICTED_FLOOR = 0.05
 # Relative-error denominators are floored at this fraction of the
@@ -208,7 +355,7 @@ def guard_relative_error(
 
 def record_guard_measurement(
     state: CacheState,
-    measured: bool,
+    measured: Union[bool, torch.Tensor],
     realized: torch.Tensor,
     predicted: torch.Tensor,
     abs_target: torch.Tensor,
@@ -216,21 +363,59 @@ def record_guard_measurement(
     """Fold one closed skip span's realized-vs-predicted error into the guard
     telemetry (no-op unless ``measured``).  ``overrun`` is a monotone
     high-water mark of the worse of realized/predicted and
-    realized/abs_target, clipped to [0, 10]."""
-    if not measured:
-        return state
+    realized/abs_target, clipped to [0, 10].  ``measured`` is a bool or a
+    bool 0-d tensor; the update is masked on the device, so a measurement
+    decided there (the token level) needs no host read."""
     dt = state.realized_err_sum.dtype
+    measured = torch.as_tensor(measured, device=state.overrun.device)
     ratio = realized / torch.clamp(predicted, min=GUARD_PREDICTED_FLOOR)
     miscal = torch.clamp(
         torch.maximum(ratio, realized / torch.clamp(abs_target, min=1e-3)), 0.0, 10.0
     ).to(dt)
+    m = measured.to(dt)
     return state.replace(
-        realized_err_sum=state.realized_err_sum + realized.to(dt),
-        predicted_err_sum=state.predicted_err_sum + predicted.to(dt),
-        realized_err_max=torch.maximum(state.realized_err_max, realized.to(dt)),
-        guard_measurements=state.guard_measurements + 1,
-        overrun=torch.maximum(state.overrun, miscal),
+        realized_err_sum=state.realized_err_sum + m * realized.to(dt),
+        predicted_err_sum=state.predicted_err_sum + m * predicted.to(dt),
+        realized_err_max=torch.maximum(state.realized_err_max, m * realized.to(dt)),
+        guard_measurements=state.guard_measurements + measured.to(torch.int32),
+        overrun=torch.where(measured, torch.maximum(state.overrun, miscal), state.overrun),
     )
+
+
+# ----------------------------------------------------------------- updates
+def update_after_forward(
+    cfg: E2CRFConfig,
+    state: CacheState,
+    mode: int,
+    n_masked: int,
+    kv_new: tuple[torch.Tensor, torch.Tensor],
+    crf: torch.Tensor,
+) -> CacheState:
+    """Bookkeeping after a KV-level forward: the per-token CRF drift (L2 over
+    d_model, mean over layers), the K/V store, the CRF and the counters;
+    ``n_masked`` is the number of tokens MODE_MIXED recomputed."""
+    check_level(cfg)
+    max_len = crf.shape[1]
+    delta = torch.linalg.vector_norm((crf - state.crf_prev).to(state.delta_tok.dtype), dim=-1)
+    n_recomputed = {MODE_FULL: max_len, MODE_MIXED: n_masked}.get(mode, 0)
+    return state.replace(
+        k=kv_new[0],
+        v=kv_new[1],
+        crf_prev=crf,
+        delta_tok=torch.mean(delta, dim=0),
+        last_full_step=state.step if mode == MODE_FULL else state.last_full_step,
+        recompute_count=state.recompute_count + n_recomputed,
+        cache_hit_count=state.cache_hit_count + max_len - n_recomputed,
+        full_steps=state.full_steps + (mode == MODE_FULL),
+        mixed_steps=state.mixed_steps + (mode == MODE_MIXED),
+        cached_steps=state.cached_steps + (mode == MODE_CACHED),
+    )
+
+
+def compute_event_intensity(cfg: E2CRFConfig, state: CacheState, crf: torch.Tensor) -> torch.Tensor:
+    """Mean CRF-delta energy normalized by τ₀, capped at 1."""
+    avg_energy = torch.mean(torch.linalg.vector_norm(crf - state.crf_prev, dim=-1))
+    return torch.clamp(avg_energy / cfg.tau_0, max=1.0)
 
 
 def cache_stats(state: CacheState) -> dict[str, Any]:
@@ -239,12 +424,11 @@ def cache_stats(state: CacheState) -> dict[str, Any]:
     hits = state.cache_hit_count
     total = recompute + hits
     total_steps = state.full_steps + state.mixed_steps + state.cached_steps
-    n_guard = state.guard_measurements
+    n_guard = int(state.guard_measurements)
     realized_sum = float(state.realized_err_sum)
     predicted_sum = float(state.predicted_err_sum)
-    peak = float(state.eps_norm_ref)
-    cold = float(state.eps_norm_cold)
-    numel = state.eps_hat.numel()
+    ref, cold = state.eps_norm_ref, state.eps_norm_cold
+    growth = torch.where(cold > 0, ref / torch.clamp(cold, min=1e-6), 0.0)
     return {
         "cache_hit_ratio": hits / total if total else 0.0,
         "recompute_count": recompute,
@@ -264,11 +448,20 @@ def cache_stats(state: CacheState) -> dict[str, Any]:
             else 0.0
         ),
         "overrun_mark": float(state.overrun),
-        "eps_norm_peak": peak,
-        "eps_norm_scale": peak / float(numel) ** 0.5 if numel and peak else 0.0,
-        "eps_norm_growth": (
-            float(state.eps_norm_ref / torch.clamp(state.eps_norm_cold, min=1e-6))
-            if cold > 0
-            else 0.0
-        ),
+        "eps_norm_peak": float(ref.max()),
+        "eps_norm_scale": _eps_norm_scale(state),
+        "eps_norm_growth": float(growth.max()),
     }
+
+
+def _eps_norm_scale(state: CacheState) -> float:
+    """Peak refresh-time ε̂ norm relative to the unit-noise expectation: the
+    score level norms the whole (B, T, C) ε̂, the token level each token over
+    (B, C)."""
+    peak = float(state.eps_norm_ref.max())
+    numel = state.eps_hat.numel()
+    if numel == 0 or peak == 0.0:
+        return 0.0
+    if state.eps_norm_ref.ndim == 1:
+        numel //= state.eps_norm_ref.shape[0]
+    return peak / float(numel) ** 0.5

@@ -1,3 +1,4 @@
+from fdtpu_torch.kernels.attention import fused_mha, mha_plain
 from fdtpu_torch.kernels.blockdiag_attention import blockdiag_mha, blockdiag_mha_plain
 
-__all__ = ["blockdiag_mha", "blockdiag_mha_plain"]
+__all__ = ["blockdiag_mha", "blockdiag_mha_plain", "fused_mha", "mha_plain"]

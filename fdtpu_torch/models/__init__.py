@@ -6,9 +6,15 @@ from fdtpu_torch.models.score_models import (
     param_count,
     resolve_attention_impl,
     score_apply,
+    score_apply_cached,
+    score_apply_topk,
 )
+from fdtpu_torch.models.transformer import MODE_CACHED, MODE_FULL, MODE_MIXED
 
 __all__ = [
+    "MODE_CACHED",
+    "MODE_FULL",
+    "MODE_MIXED",
     "ScoreModel",
     "ScoreModelConfig",
     "ScoreNetwork",
@@ -16,4 +22,6 @@ __all__ = [
     "param_count",
     "resolve_attention_impl",
     "score_apply",
+    "score_apply_cached",
+    "score_apply_topk",
 ]

@@ -1,5 +1,5 @@
 """Transformer score network (port of
-``fdtpu/models/score_models.py:50-273, 345-397``).
+``fdtpu/models/score_models.py:50-273, 345-535``).
 
 Pipeline: Linear(C→D) embed → learnable positional encoding (max-norm √d) →
 Gaussian-Fourier time encoding → post-norm encoder stack → Linear(D→C)
@@ -11,14 +11,21 @@ module; ``init_score_model`` builds it from an explicit ``torch.Generator``
 on the requested device (CUDA unless ``device="cpu"``), frozen for
 sampling.  ``forward(x, t, train=True, generator=g)`` is the training
 forward, with dropout drawn from ``g`` (the trainer,
-:mod:`fdtpu_torch.train.trainer`, makes its own trainable copy).  The cached
-forwards and the MLP/LSTM backbones are still to port (ROADMAP.md).
+:mod:`fdtpu_torch.train.trainer`, makes its own trainable copy).
+
+The E²-CRF cache's forwards, :func:`score_apply_cached` (KV level, and the
+token level's full refreshes) and :func:`score_apply_topk` (token level),
+take the K/V store ``(k, v)``, each ``(num_layers, B, T, H, Dh)`` in the
+compute dtype, and update it in place; the JAX package's ``lax.switch`` over
+the mode becomes a branch on a host int.  The MLP/LSTM backbones are still to
+port (ROADMAP.md).
 """
 
 from __future__ import annotations
 
 import copy
 import dataclasses
+import math
 from typing import Any, Optional
 
 import torch
@@ -26,8 +33,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from fdtpu_torch.models.encodings import GaussianFourierProjection, PositionalEncoding
-from fdtpu_torch.models.initializers import linear_init_
-from fdtpu_torch.models.transformer import EncoderLayer
+from fdtpu_torch.models.initializers import linear_init_, max_norm_rows
+from fdtpu_torch.models.transformer import EncoderLayer, KVStore
 from fdtpu_torch.utils.device import DeviceLike, resolve_device
 
 
@@ -100,6 +107,18 @@ class ScoreNetwork(nn.Module):
         for layer in self.backbone:
             layer.reset_parameters(generator)
 
+    def _check_input(self, x: torch.Tensor) -> None:
+        cfg = self.config
+        if tuple(x.shape[1:]) != (cfg.max_len, cfg.n_channels):
+            raise ValueError(
+                f"X has wrong shape, expected (*, {cfg.max_len}, {cfg.n_channels}), "
+                f"got {tuple(x.shape)}"
+            )
+
+    def _unembed(self, h: torch.Tensor, out_dtype: torch.dtype) -> torch.Tensor:
+        w, b = self.unembedder.weight.to(h.dtype), self.unembedder.bias.to(h.dtype)
+        return F.linear(h, w, b).to(out_dtype)
+
     def forward(
         self,
         x: torch.Tensor,
@@ -109,22 +128,67 @@ class ScoreNetwork(nn.Module):
     ) -> torch.Tensor:
         """Uncached score forward: ``(B, max_len, n_channels) → same shape``;
         dropout only with ``train`` and a ``generator``."""
-        cfg = self.config
-        if tuple(x.shape[1:]) != (cfg.max_len, cfg.n_channels):
-            raise ValueError(
-                f"X has wrong shape, expected (*, {cfg.max_len}, {cfg.n_channels}), "
-                f"got {tuple(x.shape)}"
-            )
+        self._check_input(x)
         out_dtype = x.dtype
-        x = x.to(cfg._cdtype)
-        timesteps = timesteps.to(cfg._cdtype)
-        h = F.linear(x, self.embedder.weight.to(x.dtype), self.embedder.bias.to(x.dtype))
-        h = self.pos_encoder(h)
-        h = self.time_encoder(h, timesteps)
+        h = self._embed(x.to(self.config._cdtype), timesteps)
         for layer in self.backbone:
             h = layer(h, train, generator)
-        out = F.linear(h, self.unembedder.weight.to(h.dtype), self.unembedder.bias.to(h.dtype))
-        return out.to(out_dtype)
+        return self._unembed(h, out_dtype)
+
+    def _embed(self, x: torch.Tensor, timesteps: torch.Tensor) -> torch.Tensor:
+        h = F.linear(x, self.embedder.weight.to(x.dtype), self.embedder.bias.to(x.dtype))
+        h = self.pos_encoder(h)
+        return self.time_encoder(h, timesteps.to(x.dtype))
+
+    def _check_store(self, kv_cache: KVStore) -> None:
+        cfg = self.config
+        want = (cfg.num_layers, cfg.max_len, cfg.n_head, cfg.head_dim)
+        for a in kv_cache:
+            if (a.shape[0], *a.shape[2:]) != want or a.dtype != cfg._cdtype:
+                raise ValueError(
+                    f"K/V store {tuple(a.shape)} {a.dtype}: need (L, B, T, H, Dh) = "
+                    f"({want[0]}, B, {', '.join(map(str, want[1:]))}) in {cfg._cdtype}"
+                )
+
+    def forward_cached(
+        self,
+        x: torch.Tensor,
+        timesteps: torch.Tensor,
+        kv_cache: KVStore,
+        recompute_mask: Optional[torch.Tensor],
+        mode: int,
+    ) -> tuple[torch.Tensor, torch.Tensor]:
+        """Cached score forward in ``mode``; the store is updated in place.
+        Returns ``(score, crf)`` with crf ``(num_layers, T, d_model)``, the
+        hidden state of batch element 0 after each layer."""
+        self._check_input(x)
+        self._check_store(kv_cache)
+        out_dtype = x.dtype
+        h = self._embed(x.to(self.config._cdtype), timesteps)
+        crf = []
+        for layer, k, v in zip(self.backbone, *kv_cache):
+            h = layer.forward_cached(h, (k, v), mode, recompute_mask)
+            crf.append(h[0])
+        return self._unembed(h, out_dtype), torch.stack(crf)
+
+    def forward_topk(
+        self, x: torch.Tensor, timesteps: torch.Tensor, kv_cache: KVStore, idx: torch.Tensor
+    ) -> torch.Tensor:
+        """Token-budget score forward: only the ``idx`` rows, end to end; the
+        store is updated in place.  Returns the rows' score (B, k, C)."""
+        cfg = self.config
+        self._check_input(x)
+        self._check_store(kv_cache)
+        out_dtype = x.dtype
+        x_rows = x.to(cfg._cdtype).index_select(1, idx)
+        h = F.linear(x_rows, self.embedder.weight.to(x_rows.dtype),
+                     self.embedder.bias.to(x_rows.dtype))
+        # Positional rows: the same max-norm-√d lookup as the full path.
+        table = max_norm_rows(self.pos_encoder.embedding.to(h.dtype), math.sqrt(cfg.d_model))
+        h = self.time_encoder(h + table.index_select(0, idx)[None], timesteps.to(h.dtype))
+        for layer, k, v in zip(self.backbone, *kv_cache):
+            h = layer.forward_topk(h, (k, v), idx)
+        return self._unembed(h, out_dtype)
 
     def compute_copy(self) -> "ScoreNetwork":
         """The network with every parameter and buffer in the compute dtype —
@@ -163,6 +227,40 @@ def score_apply(
 ) -> torch.Tensor:
     """Uncached score forward: ``(B, max_len, n_channels)``."""
     return network(x, timesteps, train, generator)
+
+
+def score_apply_cached(
+    network: ScoreNetwork,
+    x: torch.Tensor,
+    timesteps: torch.Tensor,
+    kv_cache: KVStore,
+    recompute_mask: Optional[torch.Tensor],
+    mode: int,
+) -> tuple[torch.Tensor, KVStore, torch.Tensor]:
+    """Cached transformer score forward (``fdtpu/models/score_models.py:470``).
+
+    ``kv_cache`` is ``(k, v)``, each ``(num_layers, B, T, H, Dh)`` in the
+    compute dtype, updated in place and returned; ``recompute_mask`` (T,)
+    bool is read in MODE_MIXED; ``mode`` is MODE_FULL, MODE_MIXED or
+    MODE_CACHED.  MODE_FULL keeps the network's ``attention_impl`` (B1 under
+    ``"blockdiag"``); MIXED and CACHED attend through B4 under a kernel
+    implementation.  Returns ``(score, kv_cache, crf)``."""
+    score, crf = network.forward_cached(x, timesteps, kv_cache, recompute_mask, mode)
+    return score, kv_cache, crf
+
+
+def score_apply_topk(
+    network: ScoreNetwork,
+    x: torch.Tensor,
+    timesteps: torch.Tensor,
+    kv_cache: KVStore,
+    idx: torch.Tensor,
+) -> tuple[torch.Tensor, KVStore]:
+    """Token-budget score forward (``fdtpu/models/score_models.py:400``):
+    recompute only the ``idx`` (k,) token rows, shared across the batch,
+    scattering their fresh K/V into ``kv_cache`` in place.  Returns
+    ``(out_rows, kv_cache)`` with out_rows ``(B, k, C)``."""
+    return network.forward_topk(x, timesteps, kv_cache, idx), kv_cache
 
 
 def param_count(network: nn.Module) -> int:

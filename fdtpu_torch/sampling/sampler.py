@@ -1,17 +1,28 @@
-"""Reverse-diffusion sampling (port of ``fdtpu/sampling/sampler.py:99-415,
+"""Reverse-diffusion sampling (port of ``fdtpu/sampling/sampler.py:99-635,
 784-1151``).
 
 The JAX package compiles the whole trajectory into one ``lax.scan``; here the
-reverse Euler–Maruyama chain is a Python loop over steps, one score forward
-per full step.  At the score level of the E²-CRF cache each step either runs
-the network (refresh) or rebuilds the score from the extrapolated ε̂ (skip);
-the branch is decided on the host from the float32 cache state.
+reverse Euler–Maruyama chain is a Python loop over steps, and each step's
+branch of the E²-CRF cache is decided on the host from the float32 cache
+state (at most one device read a step):
+
+* score level: run the network (refresh) or rebuild the score from the
+  extrapolated ε̂ (skip);
+* token level: FULL (the cached forward in MODE_FULL), TOPK (the
+  ``token_budget`` highest-priority tokens through the network, the rest
+  extrapolated) or SKIP;
+* KV level: the cached forward in the mode of the macro or event policy.
+
+The token and KV levels update the cache's K/V store in place (the JAX
+package returns a new one); a state handed to ``sample_chain`` is updated.
 
 Noise can be injected: ``sample_chain`` takes ``step_noise`` of shape
-``(num_steps, B, T, C)`` and ``DiffusionSampler.sample`` takes ``prior_noise``
-``(N, T, C)`` and ``step_noise`` ``(num_steps, N, T, C)``; otherwise the noise
-is drawn from a ``torch.Generator``.  JAX and torch random streams never
-match, so replaying a JAX chain means handing its draws in.
+``(num_steps, B, T, C)`` and ``probe_noise`` ``(num_steps, T)`` (the uniforms
+of the random probes, token and KV levels), and ``DiffusionSampler.sample``
+takes ``prior_noise`` ``(N, T, C)``, ``step_noise`` ``(num_steps, N, T, C)``
+and ``probe_noise`` ``(num_batches, num_steps, T)``; otherwise the noise is
+drawn from a ``torch.Generator``.  JAX and torch random streams never match,
+so replaying a JAX chain means handing its draws in.
 
 Reference parity kept on purpose: remainder-dropping batch count (quirk Q6)
 and cache persistence across batches with a global step counter, the cache
@@ -27,27 +38,41 @@ from typing import Any, Optional
 import torch
 
 from fdtpu_torch.cache.e2crf import (
+    MODE_FULL,
+    TOKEN_FULL,
+    TOKEN_TOPK,
     CacheState,
     E2CRFConfig,
     PolicyParams,
     cache_stats,
+    check_level,
+    event_policy,
     guard_relative_error,
     init_cache_state,
+    macro_policy,
     record_guard_measurement,
     score_skip_decision,
+    token_policy,
+    update_after_forward,
 )
 from fdtpu_torch.diffusion.sde import SDE
-from fdtpu_torch.models.score_models import ScoreModel, ScoreNetwork
+from fdtpu_torch.models.score_models import (
+    ScoreModel,
+    ScoreNetwork,
+    score_apply_cached,
+    score_apply_topk,
+)
 from fdtpu_torch.utils.device import module_device
 
 
 def _check_cache_config(cfg: E2CRFConfig) -> None:
     if cfg.eps_predictor not in ("taylor", "freqca"):
         raise ValueError(f"eps_predictor must be 'taylor' or 'freqca' (got {cfg.eps_predictor!r})")
-    if cfg.level != "score":
-        raise NotImplementedError(
-            f"level={cfg.level!r} is not ported yet (ROADMAP.md: token level, KV level)"
+    if cfg.eps_predictor == "freqca" and cfg.level != "score":
+        raise ValueError(
+            f"eps_predictor='freqca' is a score-level predictor (got level={cfg.level!r})"
         )
+    check_level(cfg)
     if cfg.eps_predictor == "freqca":
         raise NotImplementedError("eps_predictor='freqca' is not ported yet (ROADMAP.md: FreqCa)")
 
@@ -133,6 +158,151 @@ def _skip(c: CacheState, std, max_len: int, order: int):
     return score, c
 
 
+def _tok_norms(eps: torch.Tensor) -> torch.Tensor:
+    """Per-token norms over (batch, channels), float32."""
+    return torch.linalg.vector_norm(eps.float(), dim=(0, 2))
+
+
+def _tok_residual_rate(eps_new, pred, ages, ref) -> torch.Tensor:
+    """Relative extrapolation residual per token per elapsed step: norms over
+    (batch, channels) in float32, ``ages`` the steps the prediction bridged,
+    ``ref`` each token's trajectory-scale ε̂ norm (the denominator floor)."""
+    num = torch.linalg.vector_norm((eps_new - pred).float(), dim=(0, 2))
+    rel = guard_relative_error(num, _tok_norms(eps_new) + 1e-8, ref.float())
+    return rel / torch.clamp(ages.float(), min=1.0)
+
+
+def _median(x: torch.Tensor) -> torch.Tensor:
+    """Median of a vector, the mean of the two middle values when the count
+    is even (``jnp.median``; ``torch.median`` returns the lower one)."""
+    s = torch.sort(x).values
+    n = s.shape[0]
+    return (s[(n - 1) // 2] + s[n // 2]) * 0.5
+
+
+def _topk_rows(priority: torch.Tensor, budget: int) -> torch.Tensor:
+    """The ``budget`` largest entries' indices, lower index first among ties
+    (``jax.lax.top_k``'s order; ``torch.topk`` does not keep it, and the
+    probe and anchor bonuses make ties routine).  Every entry gets a unique
+    int64 key, the float32 priority's order-preserving bit image times n
+    plus its reversed index, so no tie is left to the device's sort."""
+    n = priority.shape[0]
+    bits = priority.float().view(torch.int32)
+    key = torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits).to(torch.int64)
+    rank = torch.arange(n - 1, -1, -1, device=priority.device)
+    return torch.topk(key * n + rank, budget).indices
+
+
+def _token_step(network, c: CacheState, cfg: E2CRFConfig, pp: PolicyParams, x, t_batch, std,
+                low_bonus, probe):
+    """One step of the token level (``token_level_body``): FULL, TOPK or SKIP.
+    ``probe()`` gives the step's (T,) probe uniforms, drawn only at TOPK."""
+    max_len = x.shape[1]
+    stdc = std[..., None]
+    budget = min(int(cfg.token_budget), max_len)
+    # Per-token linear extrapolation of ε̂ (order 0: frozen reuse).
+    age = (c.step - c.last_tok).to(x.dtype)  # (T,)
+    eps_pred = c.eps_hat
+    if cfg.eps_order != 0:
+        gap = c.gap_tok[None, :, None]
+        slope = torch.where(gap > 0, (c.eps_hat - c.eps_prev) / torch.clamp(gap, min=1.0), 0.0)
+        eps_pred = c.eps_hat + slope * age[None, :, None]
+    mode, w_drift, mean_drift = token_policy(cfg, pp, c, x)
+
+    if mode == TOKEN_FULL:
+        score, kv, _ = score_apply_cached(network, x, t_batch, (c.k, c.v), None, MODE_FULL)
+        eps_new = -stdc * score
+        tok_norms = _tok_norms(eps_new).to(c.eps_norm_ref.dtype)
+        norm_ref = torch.maximum(c.eps_norm_ref, tok_norms)
+        if c.cold:
+            rate = torch.zeros((max_len,), dtype=c.delta_tok.dtype, device=x.device)
+        else:
+            rate = _tok_residual_rate(eps_new, eps_pred, age, norm_ref).to(c.delta_tok.dtype)
+            # Realized mean per-token error over the spans just closed (rate ×
+            # age undoes the per-step normalization) against the budget.
+            realized = torch.mean(rate.float() * torch.clamp(age, min=1.0))
+            c = record_guard_measurement(c, torch.max(age) > 1, realized, c.err_acc,
+                                         pp.guard_abs_tol)
+        c = c.replace(
+            k=kv[0],
+            v=kv[1],
+            eps_prev=eps_new if c.cold else c.eps_hat,
+            gap_tok=torch.zeros_like(age) if c.cold else age,
+            eps_hat=eps_new,
+            last_tok=torch.full_like(c.last_tok, c.step),
+            delta_tok=rate,
+            eps_norm_ref=norm_ref,
+            eps_norm_cold=tok_norms if c.cold else c.eps_norm_cold,
+            err_acc=torch.zeros_like(c.err_acc),
+            last_full_step=c.step,
+            cold=False,
+            full_steps=c.full_steps + 1,
+            recompute_count=c.recompute_count + max_len,
+        )
+        return score, c
+
+    if mode == TOKEN_TOPK:
+        # Priority: each token's accumulated predicted error (drift rate ×
+        # steps since its last recompute, energy-weighted), the K lowest
+        # frequencies always in, random probes forced in below them.
+        acc_err = w_drift * (age + 1.0)
+        probe_bonus = torch.where(probe() < pp.random_probe_ratio, 1e9, 0.0)
+        idx = _topk_rows(acc_err + low_bonus + probe_bonus, budget)
+        out_rows, kv = score_apply_topk(network, x, t_batch, (c.k, c.v), idx)
+        eps_rows = -std.index_select(1, idx)[..., None] * out_rows
+        age_rows = age.index_select(0, idx)
+        ref_rows = torch.maximum(c.eps_norm_ref.index_select(0, idx),
+                                 _tok_norms(eps_rows).to(c.eps_norm_ref.dtype))
+        rate_rows = _tok_residual_rate(
+            eps_rows, eps_pred.index_select(1, idx), age_rows, ref_rows
+        ).to(c.delta_tok.dtype)
+        # Guard telemetry of the audited rows: the MEDIAN of their realized
+        # errors (one ancient diverged row must not read as a collapse).
+        if not c.cold:
+            realized = _median(rate_rows.float() * torch.clamp(age_rows.float(), min=1.0))
+            c = record_guard_measurement(c, torch.max(age_rows) > 1, realized, c.err_acc,
+                                         pp.guard_abs_tol)
+        score = -eps_pred.index_copy(1, idx, eps_rows) / stdc
+        # Unattended drift accrues into the error budget.
+        attended = torch.sum(w_drift.index_select(0, idx)) / max_len
+        err_inc = torch.clamp(mean_drift - attended, min=0.0)
+        c = c.replace(
+            k=kv[0],
+            v=kv[1],
+            # eps_prev takes the rows of eps_hat before eps_hat takes the new ones.
+            eps_prev=c.eps_prev.index_copy(1, idx, c.eps_hat.index_select(1, idx)),
+            gap_tok=c.gap_tok.index_copy(0, idx, age_rows),
+            eps_hat=c.eps_hat.index_copy(1, idx, eps_rows),
+            last_tok=c.last_tok.index_fill(0, idx, c.step),
+            delta_tok=c.delta_tok.index_copy(0, idx, rate_rows),
+            eps_norm_ref=c.eps_norm_ref.index_copy(0, idx, ref_rows),
+            err_acc=c.err_acc + err_inc.to(c.err_acc.dtype),
+            mixed_steps=c.mixed_steps + 1,
+            recompute_count=c.recompute_count + budget,
+            cache_hit_count=c.cache_hit_count + (max_len - budget),
+        )
+        return score, c
+
+    c = c.replace(
+        err_acc=c.err_acc + mean_drift.to(c.err_acc.dtype),
+        cached_steps=c.cached_steps + 1,
+        cache_hit_count=c.cache_hit_count + max_len,
+    )
+    return -eps_pred / stdc, c
+
+
+def _kv_step(network, c: CacheState, cfg: E2CRFConfig, pp: PolicyParams, x, t_batch, probe):
+    """One step of the KV level (``kv_level_body``): the policy's mode, the
+    cached forward in it, the bookkeeping."""
+    if cfg.policy == "macro":
+        mode, mask, n_masked = macro_policy(pp, c, x.shape[1], x.device)
+    else:
+        probe_u = probe() if cfg.resolved_random_probe_ratio > 0.0 else None
+        mode, mask, n_masked = event_policy(cfg, pp, c, x, probe_u)
+    score, kv, crf = score_apply_cached(network, x, t_batch, (c.k, c.v), mask, mode)
+    return score, update_after_forward(cfg, c, mode, n_masked, kv, crf)
+
+
 @torch.no_grad()
 def sample_chain(
     network: ScoreNetwork,
@@ -143,6 +313,7 @@ def sample_chain(
     cache_cfg: Optional[E2CRFConfig] = None,
     num_steps: int,
     step_noise: Optional[torch.Tensor] = None,
+    probe_noise: Optional[torch.Tensor] = None,
     generator: Optional[torch.Generator] = None,
     guard_trace: bool = False,
 ):
@@ -151,11 +322,12 @@ def sample_chain(
     Returns ``(x, cache_state)``; with ``guard_trace=True`` (score level)
     also per-step telemetry ``(measured, rel, eps_norm, err_acc,
     steps_since)``, each ``(num_steps,)`` and zero on skipped steps, laid out
-    as the JAX package's ``guard_trace``.
+    as the JAX package's ``guard_trace``.  A token- or KV-level
+    ``cache_state`` passed in has its K/V store updated in place.
     """
     if cache_cfg is not None:
         _check_cache_config(cache_cfg)
-    elif guard_trace:
+    if guard_trace and (cache_cfg is None or cache_cfg.level != "score"):
         raise NotImplementedError("guard_trace only supports level='score'")
     network = network.compute_copy()
     ts, step_size = scheduler.timesteps(num_steps, device=x0.device)
@@ -176,22 +348,41 @@ def sample_chain(
 
     pp = cache_cfg.policy_params(x0.device)
     order = cache_cfg.eps_order
+    level = cache_cfg.level
     max_len = x0.shape[1]
     cache = cache_state
     if cache is None:
-        cache = init_cache_state(cache_cfg, batch, max_len, x0.shape[2], x0.device)
+        cfg = network.config
+        cache = init_cache_state(
+            cache_cfg, batch, max_len, x0.shape[2], x0.device, num_layers=cfg.num_layers,
+            n_head=cfg.n_head, head_dim=cfg.head_dim, d_model=cfg.d_model, kv_dtype=cfg._cdtype,
+        )
     skipped = (0.0, torch.zeros((), device=x.device), torch.zeros((), device=x.device),
                torch.zeros((), device=x.device), 0.0)
+    # The token level's K low-frequency anchors, ahead of every other token.
+    low_bonus = torch.where(torch.arange(max_len, device=x.device) < pp.K, 2e9, 0.0)
     traces = []
     for i in range(num_steps):
         t = ts[i]
         t_batch = t.expand(batch)
-        _, std = scheduler.marginal_prob(x, t_batch)
-        if score_skip_decision(cache_cfg, pp, cache):
-            score, cache, trace = _refresh(network, cache, pp, x, t_batch, std, order)
+
+        def probe() -> torch.Tensor:
+            if probe_noise is not None:
+                return probe_noise[i].to(device=x.device, dtype=torch.float32)
+            return torch.rand((max_len,), generator=generator, device=x.device)
+
+        if level == "kv":
+            score, cache = _kv_step(network, cache, cache_cfg, pp, x, t_batch, probe)
         else:
-            score, cache = _skip(cache, std, max_len, order)
-            trace = skipped
+            _, std = scheduler.marginal_prob(x, t_batch)
+            if level == "token":
+                score, cache = _token_step(network, cache, cache_cfg, pp, x, t_batch, std,
+                                           low_bonus, probe)
+            elif score_skip_decision(cache_cfg, pp, cache):
+                score, cache, trace = _refresh(network, cache, pp, x, t_batch, std, order)
+            else:
+                score, cache = _skip(cache, std, max_len, order)
+                trace = skipped
         if guard_trace:
             traces.append(trace)
         x = scheduler.step(score, t, x, noise(i, x), step_size)
@@ -210,7 +401,7 @@ class DiffusionSampler:
     """User-facing sampler (the JAX package's ``DiffusionSampler``).
 
     ``cache_kwargs`` takes the fields of :class:`E2CRFConfig`.  Not ported
-    yet (ROADMAP.md): FreSca, ``mesh`` and ``batches_per_call > 1``.
+    yet (ROADMAP.md): FreqCa, FreSca, ``mesh`` and ``batches_per_call > 1``.
     """
 
     def __init__(
@@ -239,15 +430,47 @@ class DiffusionSampler:
         self.device = module_device(score_model.network)
         self.use_cache = use_cache
         self.cache_config = E2CRFConfig(**(cache_kwargs or {})) if use_cache else None
-        if self.cache_config is not None:
-            _check_cache_config(self.cache_config)
+        cfg = self.cache_config
+        if cfg is not None:
+            _check_cache_config(cfg)
+            self._check_level_settings(cfg)
         self.last_cache_state: Optional[CacheState] = None
+
+    def _check_level_settings(self, cfg: E2CRFConfig) -> None:
+        """The JAX sampler's checks of the token and KV settings: a token
+        budget in [1, max_len]; warnings for unaudited stale rows (token level
+        without probes) and for a KV event threshold that caches nothing."""
+        if cfg.level == "token" and not 1 <= cfg.token_budget <= self.max_len:
+            raise ValueError(
+                "level='token' needs 1 <= token_budget <= max_len "
+                f"(got {cfg.token_budget}, max_len {self.max_len})"
+            )
+        if cfg.level == "token" and cfg.random_probe_ratio == 0.0 and cfg.guard != "off":
+            warnings.warn(
+                "level='token' with random_probe_ratio=0.0: stale rows the "
+                "top-k never selects go unaudited, so cumulative collapse "
+                "there is invisible to the error-budget guard. Leave "
+                "random_probe_ratio unset to get the 0.02 default, or set "
+                "guard='off' to silence this warning.",
+                stacklevel=3,
+            )
+        if cfg.level == "kv" and cfg.policy == "event" and cfg.tau_0 < 1.0:
+            warnings.warn(
+                f"level='kv' with policy='event' and tau_0={cfg.tau_0} < 1: the "
+                "KV-level CRF drift is unnormalized, so this threshold triggers "
+                "recomputation every step (no caching). Calibrated values are "
+                "tau_0 in [1, 1000]; see cli/ablation_cache.py.",
+                stacklevel=3,
+            )
 
     def _init_cache(self, batch_size: int) -> Optional[CacheState]:
         if not self.use_cache:
             return None
+        cfg = self.score_model.config
         return init_cache_state(
-            self.cache_config, batch_size, self.max_len, self.n_channels, self.device
+            self.cache_config, batch_size, self.max_len, self.n_channels, self.device,
+            num_layers=cfg.num_layers, n_head=cfg.n_head, head_dim=cfg.head_dim,
+            d_model=cfg.d_model, kv_dtype=cfg._cdtype,
         )
 
     def sample_prior(
@@ -269,21 +492,28 @@ class DiffusionSampler:
         generator: Optional[torch.Generator] = None,
         prior_noise: Optional[torch.Tensor] = None,
         step_noise: Optional[torch.Tensor] = None,
+        probe_noise: Optional[torch.Tensor] = None,
     ) -> torch.Tensor:
         """Generate ``num_samples`` series ``(N, T, C)`` on the model's device.
 
         Remainder-dropping batch count (quirk Q6) and cache persistence
         across batches (quirk Q5).  Noise comes from ``prior_noise`` /
-        ``step_noise`` when given (indexed by sample), else from
-        ``generator`` (seed 0 on the model's device by default)."""
+        ``step_noise`` (indexed by sample) and ``probe_noise`` (indexed by
+        batch) when given, else from ``generator`` (seed 0 on the model's
+        device by default)."""
         if num_diffusion_steps is None:
             num_diffusion_steps = self.score_model.num_training_steps
-        if generator is None and (prior_noise is None or step_noise is None):
+        if generator is None and any(a is None for a in (prior_noise, step_noise, probe_noise)):
             generator = torch.Generator(device=self.device).manual_seed(0)
 
         num_batches = max(1, num_samples // self.sample_batch_size)
         all_samples = []
         cache_state: Optional[CacheState] = None
+
+        def cache_batch(state: CacheState) -> int:
+            # Batch size of whichever per-batch store this level allocates.
+            return state.k.shape[1] if state.k.ndim > 1 else state.eps_hat.shape[0]
+
         for batch_idx in range(num_batches):
             start = batch_idx * self.sample_batch_size
             batch_size = min(num_samples - start, self.sample_batch_size)
@@ -294,7 +524,7 @@ class DiffusionSampler:
             if self.use_cache and (
                 cache_state is None
                 or self.cache_config.reset_between_batches
-                or cache_state.eps_hat.shape[0] != batch_size
+                or cache_batch(cache_state) != batch_size
             ):
                 cache_state = self._init_cache(batch_size)
             elif self.use_cache and batch_idx > 0:
@@ -307,6 +537,7 @@ class DiffusionSampler:
                 cache_cfg=self.cache_config,
                 num_steps=num_diffusion_steps,
                 step_noise=None if step_noise is None else step_noise[:, rows],
+                probe_noise=None if probe_noise is None else probe_noise[batch_idx],
                 generator=generator,
             )
             all_samples.append(x)

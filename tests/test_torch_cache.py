@@ -60,9 +60,15 @@ def test_init_cache_state_matches_jax_score_fields():
 
 
 def test_unported_levels_raise_not_implemented():
+    """FreqCa at the KV level is still to port; the token and KV levels are
+    ported (their state is held against the JAX package in
+    tests/test_torch_cache_levels.py)."""
+    sizes = dict(num_layers=2, n_head=2, head_dim=6, d_model=12)
+    with pytest.raises(NotImplementedError, match="FreqCa.*ROADMAP"):
+        pe.init_cache_state(pe.E2CRFConfig(level="kv", use_freqca=True), 3, 5, 1, "cpu", **sizes)
     for level in ("token", "kv"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            pe.init_cache_state(pe.E2CRFConfig(level=level), 3, 5, 1, "cpu")
+        state = pe.init_cache_state(pe.E2CRFConfig(level=level), 3, 5, 1, "cpu", **sizes)
+        assert state.k.shape == (2, 3, 5, 2, 6)
 
 
 DECISION_CASES = [

@@ -1,6 +1,7 @@
-"""Card-only tests of the port's CUDA kernels (forward B1, backward B2) and
-of the autograd Function over them (B3), held against their plain PyTorch
-versions on the card.  They skip without a CUDA device.
+"""Card-only tests of the port's CUDA kernels (forward B1, backward B2,
+token-major attention B4) and of the autograd Function over B1 and B2 (B3),
+held against their plain PyTorch versions on the card, and of a token-level
+and a KV-level chain through them.  They skip without a CUDA device.
 
 This file imports only torch and the port, so it also runs where JAX is not
 installed:
@@ -14,6 +15,7 @@ Pallas kernel to), 5e-2 for bfloat16 inputs against the float32 plain version.
 import pytest
 import torch
 
+from fdtpu_torch.kernels import attention as mha
 from fdtpu_torch.kernels import blockdiag_attention as bda
 
 pytestmark = pytest.mark.cuda
@@ -129,3 +131,101 @@ def test_bwd_kernel_raises_instead_of_falling_back(cuda):
     q, k, v = _inputs(cuda, 1, 8, 1, 40)
     with pytest.raises(ValueError, match="head_dim"):
         bda.blockdiag_mha_bwd(q, k, v, torch.zeros_like(q))
+
+
+MHA_SHAPES = [(128, 24, 187, 12, 6), (128, 187, 187, 12, 6), (16, 501, 501, 12, 6),
+              (3, 5, 40, 2, 6), (2, 64, 1024, 4, 8), (2, 33, 17, 3, 16), (1, 7, 9, 2, 32)]
+
+
+def _mha_inputs(gen, b, tq, tk, h, dh):
+    return (torch.randn((b, tq, h, dh), generator=gen, device="cuda"),
+            torch.randn((b, tk, h, dh), generator=gen, device="cuda"),
+            torch.randn((b, tk, h, dh), generator=gen, device="cuda"))
+
+
+@pytest.mark.parametrize("shape", MHA_SHAPES)
+def test_mha_kernel_matches_plain_float32(cuda, shape):
+    q, k, v = _mha_inputs(cuda, *shape)
+    before = mha.launches
+    out = mha.fused_mha(q, k, v)
+    torch.cuda.synchronize()
+    assert mha.launches == before + 1
+    torch.testing.assert_close(out, mha.mha_plain(q, k, v), rtol=0, atol=2e-4)
+
+
+@pytest.mark.parametrize("shape", MHA_SHAPES[:3])
+def test_mha_kernel_bf16_against_float32_plain(cuda, shape):
+    q, k, v = _mha_inputs(cuda, *shape)
+    out = mha.fused_mha(*(a.bfloat16() for a in (q, k, v)))
+    assert out.dtype == torch.bfloat16
+    torch.testing.assert_close(out.float(), mha.mha_plain(q, k, v), rtol=0, atol=5e-2)
+
+
+def test_mha_kernel_raises_instead_of_falling_back(cuda):
+    q, k, v = _mha_inputs(cuda, 2, 4, 16, 2, 6)
+    with pytest.raises(TypeError):
+        mha.fused_mha(q.double(), k.double(), v.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        mha.fused_mha(q, k.transpose(0, 1).contiguous().transpose(0, 1), v)
+    with pytest.raises(ValueError, match="head_dim"):
+        mha.fused_mha(*_mha_inputs(cuda, 1, 4, 8, 1, 40))
+    with pytest.raises(ValueError, match="shared memory"):
+        mha.fused_mha(*_mha_inputs(cuda, 1, 4, 5000, 1, 6))
+    with pytest.raises(NotImplementedError, match="no gradient"):
+        mha.fused_mha(q.requires_grad_(), k, v)
+
+
+def test_topk_rows_on_the_card_keep_the_cpu_tie_order(cuda):
+    """Ties at the token budget's edge (the anchor and probe bonuses) are
+    broken by index on the card as on the CPU."""
+    from fdtpu_torch.sampling import sampler as psampler
+
+    g = torch.Generator().manual_seed(5)
+    choices = torch.tensor([0.0, 0.7, 1e9, 2e9, 5.0])
+    for n, budget in ((17, 4), (187, 24), (501, 60)):
+        priority = choices[torch.randint(0, 5, (n,), generator=g)]
+        want = psampler._topk_rows(priority, budget)
+        got = psampler._topk_rows(priority.cuda(), budget).cpu()
+        assert got.tolist() == want.tolist()
+
+
+@pytest.mark.parametrize("cache_kwargs", [
+    dict(level="token", token_budget=4, tau_0=0.0, R=8, guard="off"),
+    dict(level="kv", policy="event", K=1, R=6, tau_0=1.0, tau_warn=1e9),
+], ids=["token", "kv-event"])
+def test_cached_chain_on_the_card_counts_its_kernels(cuda, cache_kwargs):
+    """A small model's cached chain on the card: B1 once per layer and FULL
+    step, B4 once per layer and TOPK / MIXED / CACHED step; the same samples
+    as the CPU chain given the same noise and probe uniforms.  VE, not VP:
+    the VP std at the last step, sqrt(1 - exp(-1e-6)), cancels, so the
+    card's and the CPU's exp put ~3% between the two last scores of a cached
+    chain (-eps/std), which is not what this test is about."""
+    from fdtpu_torch.diffusion import VEScheduler
+    from fdtpu_torch.models import ScoreModel, ScoreModelConfig, init_score_model
+    from fdtpu_torch.sampling import DiffusionSampler
+
+    cfg = ScoreModelConfig(n_channels=2, max_len=17, d_model=12, num_layers=2, n_head=2,
+                           dim_feedforward=24, attention_impl="blockdiag")
+    n, batch = 30, 4
+    g = torch.Generator().manual_seed(3)
+    prior = torch.randn((batch, 17, 2), generator=g)
+    steps = torch.randn((n, batch, 17, 2), generator=g)
+    probes = torch.rand((1, n, 17), generator=g)
+    samples, stats = {}, {}
+    for dev in ("cuda", "cpu"):
+        net = init_score_model(cfg, torch.Generator().manual_seed(0), device=dev)
+        model = ScoreModel(config=cfg, network=net, scheduler=VEScheduler(sigma_max=2.0))
+        sampler = DiffusionSampler(model, batch, use_cache=True, cache_kwargs=cache_kwargs)
+        bda.launches = mha.launches = 0
+        samples[dev] = sampler.sample(batch, n, prior_noise=prior, step_noise=steps,
+                                      probe_noise=probes).cpu()
+        stats[dev] = sampler.get_cache_stats()
+        if dev == "cuda":
+            counts = (bda.launches, mha.launches)
+    s = stats["cuda"]
+    b4_steps = s["mixed_steps"] + (s["cached_steps"] if cache_kwargs["level"] == "kv" else 0)
+    assert counts == (cfg.num_layers * s["full_steps"], cfg.num_layers * b4_steps)
+    assert counts[1] > 0
+    for key in ("full_steps", "mixed_steps", "cached_steps", "recompute_count"):
+        assert s[key] == stats["cpu"][key], key
+    torch.testing.assert_close(samples["cuda"], samples["cpu"], rtol=0, atol=1e-4)

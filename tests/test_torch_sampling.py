@@ -189,8 +189,9 @@ def test_error_budget_guard_warns_raises_or_stays_silent(models, guard):
 @pytest.mark.parametrize(
     "kwargs, match",
     [
-        (dict(use_cache=True, cache_kwargs=dict(level="token", token_budget=4)), "token"),
-        (dict(use_cache=True, cache_kwargs=dict(level="kv")), "kv"),
+        (dict(use_cache=True, cache_kwargs=dict(level="kv", use_freqca=True)), "FreqCa"),
+        (dict(use_cache=True, cache_kwargs=dict(level="kv", policy="macro", use_freqca=True)),
+         "level='kv'"),
         (dict(use_cache=True, cache_kwargs=dict(eps_predictor="freqca")), "FreqCa"),
         (dict(use_fresca=True), "FreSca"),
         (dict(mesh=object()), "distribution"),
