@@ -16,7 +16,8 @@ Phases (any failure exits non-zero and prints no result):
    KV level's square shape), with its time, the plain version's time, a
    one-call PyTorch yardstick (``library_ms``, timed only) and the least time
    the card could take (``bound_ms``); then B3, the autograd Function over B1
-   and B2, against autograd through the plain forward.
+   and B2, against autograd through the plain forward, and its device time;
+   B1's and B2's float32 times at head_dim 4..32 (which pipe binds).
 3. Slice: the flagship score model (d_model 72, 10 layers, 12 heads, FFN
    2048, 187 frequency tokens; random weights from a seed) on CUDA with the
    block-diagonal attention kernel: ``score_apply`` against the einsum path
@@ -42,8 +43,9 @@ Phases (any failure exits non-zero and prints no result):
    train samples/s, ms/step and where a step's device time goes.
 
 Float32 matmuls run in full float32 (TF32 off for matmuls and cuDNN).  The
-line before the last is one JSON object with a record per kernel; the last
-is ``{"ok": true, "device": {...}}``.
+line before the last is one JSON object with a record per kernel (its head
+case's times, and every case's under "cases"); the last is
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -331,7 +333,29 @@ def trainable_phase(torch, bda) -> dict:
         bound_ms=fwd_bound + bwd_bound, bound_by="operations",
     )
     print("trainable", json.dumps(rec), flush=True)
+    # Where B3's time goes beyond B1 + B2: device time by kernel against the wall.
+    device_breakdown(torch, "trainable", lambda: through(bda.blockdiag_mha_trainable),
+                     reps=20, top=6, no_grad=False)
     return rec
+
+
+def head_dim_sweep(torch, bda) -> None:
+    """Which pipe binds B1 and B2: float32 times at the main path's B, T, H
+    and head_dim 4..32.  The exps stay B·H·T² while the multiply-adds grow
+    with head_dim, so a time that follows head_dim is the FMA pipe's."""
+    g = torch.Generator(device="cuda").manual_seed(13)
+    for dh in (4, 6, 8, 16, 32):
+        for name, (b, t, h, _) in (("blockdiag_mha", FLAGSHIP.values()),
+                                   ("blockdiag_mha_bwd", TRAIN_FLAGSHIP.values())):
+            q = torch.randn((b, t, h * dh), generator=g, device="cuda")
+            k = torch.randn((b, h, dh, t), generator=g, device="cuda")
+            v = torch.randn((b, h, t, dh), generator=g, device="cuda")
+            if name == "blockdiag_mha":
+                ms = time_ms(torch, lambda: bda.blockdiag_mha_cuda(q, k, v))
+            else:
+                ms = time_ms(torch, lambda: bda.blockdiag_mha_bwd_cuda(q, k, v, q))
+            print("kernel_sweep", json.dumps({"kernel": name, "shape": [b, t, h, dh],
+                                              "dtype": "float32", "ms": ms}), flush=True)
 
 
 def device_breakdown(torch, label: str, fn, reps: int = 3, top: int = 8,
@@ -744,19 +768,25 @@ def main() -> int:
     mha_results = mha_kernel_phase(torch, mha)
     bwd_results = bwd_kernel_phase(torch, bda)
     trainable = trainable_phase(torch, bda)
+    head_dim_sweep(torch, bda)
     chains = slice_phase(torch, bda)
     levels = levels_phase(torch, bda, mha)
     train = train_phase(torch, bda)
     level_chains = [c for c in levels.values() if isinstance(c, dict)]
 
     def kernel_record(name, source, replaces, launches, results):
+        # The head case is the first float32 one; "cases" keeps every case's times.
         fp32 = [r for r in results if r["dtype"] == "float32"]
         head = fp32[0]
+        cases = [{"case": r["case"], "shape": r["shape"], "dtype": r["dtype"],
+                  "max_abs_err": r["max_abs_err"], "ms": r["kernel_ms"],
+                  "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                  "bound_by": r["bound_by"], "library_ms": r["library_ms"]} for r in results]
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": launches, "max_abs_err": max(r["max_abs_err"] for r in fp32),
                 "ms": head["kernel_ms"], "plain_ms": head["plain_ms"],
                 "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
-                "library_ms": head["library_ms"]}
+                "library_ms": head["library_ms"], "cases": cases}
 
     records = [
         kernel_record("blockdiag_mha", "fdtpu_torch/kernels/csrc/blockdiag_attention.cu",

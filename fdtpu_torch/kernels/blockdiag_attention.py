@@ -28,6 +28,13 @@ recomputes the softmax weights W (always shifted, whatever the forward's
 ``shift``) and returns ``dq = dS·K``, ``dk = qᵀ·dS``, ``dv = Wᵀ·g`` with
 ``dS = W ⊙ (g·Vᵀ − Σ_j W⊙g·Vᵀ) / √Dh``, float32 inside.
 
+Both kernels take head_dim 1..32 and T up to ``MAX_SEQ``: the keys (and
+B2's rows) stream through shared memory in tiles, so shared memory no longer
+caps T.  The wrapper hands B2 a float32 (B, H, 3, T) scratch; the kernel
+keeps its row statistics (12 bytes a row) in shared memory and uses the
+scratch only where they and its two 16 KB tiles overflow it (past T =
+16,640 at any head_dim).
+
 A CPU tensor goes to the plain version; a CUDA tensor launches the kernel or
 raises — there is no fallback.  ``launches`` and ``launches_bwd`` count
 kernel launches; ``launches_trainable`` counts backward passes of
@@ -47,7 +54,8 @@ from fdtpu_torch.kernels import build
 SOURCE = "blockdiag_attention"
 SOURCE_BWD = "blockdiag_attention_bwd"
 MAX_HEAD_DIM = 32
-SMEM_LIMIT = 232_448  # bytes of shared memory a Hopper block may use
+# Longest T either kernel takes: every index in them, T² included, fits an int32.
+MAX_SEQ = 32_768
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 launches = 0
@@ -111,7 +119,7 @@ def _library(name: str) -> ctypes.CDLL:
 
 def _check_kernel_inputs(name: str, *tensors: torch.Tensor) -> None:
     """What both kernels refuse: another dtype, a strided input, head_dim
-    over 32, K/V or q/g of one (batch, head) over the shared memory."""
+    over 32, T over ``MAX_SEQ``, B or H over the grid's 65535."""
     q, k = tensors[0], tensors[1]
     b, t, _ = q.shape
     h, dh = k.shape[1], k.shape[2]
@@ -121,12 +129,8 @@ def _check_kernel_inputs(name: str, *tensors: torch.Tensor) -> None:
         raise ValueError(f"{name} kernel needs contiguous inputs")
     if not 1 <= dh <= MAX_HEAD_DIM:
         raise ValueError(f"{name} kernel takes head_dim 1..{MAX_HEAD_DIM}, got {dh}")
-    smem = 2 * 4 * dh * t
-    if smem > SMEM_LIMIT:
-        raise ValueError(
-            f"{name} kernel stages two (Dh, T) slabs of T={t}, Dh={dh} in {smem} "
-            f"bytes of shared memory, over the {SMEM_LIMIT}-byte limit"
-        )
+    if t > MAX_SEQ:
+        raise ValueError(f"{name} kernel takes T <= {MAX_SEQ}, got {t}")
     if b > 65535 or h > 65535:
         raise ValueError(f"{name} kernel grid takes B, H <= 65535, got {b}, {h}")
 
@@ -202,12 +206,13 @@ def blockdiag_mha_bwd_cuda(
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     if dq.numel() == 0:
         return dq, dk, dv
-    # Row statistics (max, 1/sum, Σ W⊙dW) from the row pass to the column pass.
-    stats = torch.empty((3, b, h, t), dtype=torch.float32, device=q.device)
+    # Room for the row statistics (max, 1/sum, Σ W⊙dW); where they fit in
+    # shared memory the kernel keeps them there and leaves this untouched.
+    scratch = torch.empty((b, h, 3, t), dtype=torch.float32, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = _library(SOURCE_BWD).fdtpu_blockdiag_mha_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
-        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), stats.data_ptr(),
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), scratch.data_ptr(),
         _DTYPE_CODE[q.dtype], b, t, h, dh, q.device.index or 0, stream,
     )
     if err != 0:

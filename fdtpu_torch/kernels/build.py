@@ -3,7 +3,8 @@
 Each source ``fdtpu_torch/kernels/csrc/<name>.cu`` is compiled on first use
 with ``nvcc`` for ``sm_90a`` into a shared library with a plain C interface,
 ``build/fdtpu_torch_kernels/lib<name>-<hash>.so`` at the repository root
-(the hash is that of the source, so an edited source is rebuilt), and loaded
+(the hash is that of the source and the ``csrc/*.cuh`` headers, so an edited
+source or header is rebuilt), and loaded
 with ``ctypes``.  Nothing is compiled at import: the CPU-only test
 environment imports every module and has no ``nvcc``.
 """
@@ -40,7 +41,11 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()).hexdigest()[:12]
+    # The source and every header beside it, so an edited header is rebuilt too.
+    sha = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        sha.update(header.read_bytes())
+    digest = sha.hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 

@@ -16,59 +16,96 @@
 // in a row is > -88; where every score underflows, this kernel returns the true softmax
 // average where the TPU kernel returns 0.
 //
-// Design (a first, simple kernel; speed is later work).  One block per
-// (batch, head, tile of 64 query rows), 8 warps.  The block stages k_h and v_h of its
-// (batch, head) in shared memory as float32, both laid out (Dh, T) so that the lanes of a
-// warp read consecutive keys.  A warp takes one query row at a time: its lanes stride over
-// the keys for the row max (shift), then for exp, the sum and the Dh-wide accumulation;
-// warp shuffles reduce them and the lanes d < Dh write the output.
-//
 // What bounds it on an H100: at the flagship shape (B=128, T=187, H=12, Dh=6) one call
 // does 4*B*H*T^2*Dh = 1.29 GFLOP of float32 multiply-add and B*H*T^2 = 53.7M exps, and
-// moves 27.6 MB of q/k/v/out: operations, not bytes, bound it (PERF.md).  Dh = 6 fits no
-// tensor-core tile, so this kernel uses the CUDA cores; wgmma/TMA are for a later redesign.
+// moves 27.6 MB of q/k/v/out: operations, not bytes, bound it (20 us; PERF.md).  Dh = 6
+// fits no tensor-core tile and plain TF32 misses the float32 tolerance, so the products
+// run on the CUDA cores' FMA pipe and the exps on the MUFU pipe (1/8 of the FMA rate).
+//
+// Design: one pass over the keys, no shuffles.  A thread owns R query rows (Width<DH>:
+// two at Dh = 6, one elsewhere) and keeps their q, pre-scaled by log2(e)/sqrt(Dh), the
+// running max, sum and Dh accumulators in registers, so each key read from shared memory
+// feeds R rows.  A block of up to 256 threads covers all the rows of one (batch, head)
+// when T <= 256 * R (96 threads at T = 187), so K and V are staged once per (batch,
+// head), as float32 records [k | v] (blockdiag_common.cuh) that every lane reads as the
+// same broadcast 16-byte vectors.  The keys go through an online softmax in exp2 units in
+// chunks of C (8 at Dh <= 8): the scores of a chunk, one max and one rescale of the sum
+// and accumulators per chunk (no per-key branch), then exp2 and the accumulation.  The
+// shifted exps go through ex2.approx.ftz (a weight under 2^-126 of the row's largest
+// flushes to 0).  With `shift` off the max stays 0, nothing is rescaled and exp2f keeps
+// denormals.  At a fixed count of exps the time grows with Dh (chip_smoke.py's head_dim
+// sweep, PERF.md): the FMA pipe binds, not MUFU.  Where T exceeds a key tile (256 keys
+// at Dh <= 8, 16 KB), K and V stream through shared memory tile by tile with a barrier
+// between tiles; the flagship's 187 keys are one tile, so no cp.async double buffering
+// was built for the long-T path.  Each thread loads its q rows and writes its outputs as
+// 4-byte words (one 24-byte run a row at Dh = 6).
 //
 // Built with nvcc into a shared library with a plain C interface (loaded with ctypes);
 // the kernel runs on the caller's stream, does not synchronize and allocates nothing.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-
-#include <math.h>
+#include "blockdiag_common.cuh"
 
 namespace {
 
-constexpr int kWarps = 8;
-constexpr int kThreads = kWarps * 32;
-constexpr int kRowsPerBlock = 64;
-constexpr int kDefaultSmem = 48 * 1024;
-
-__device__ __forceinline__ float load_f32(const float* p) { return *p; }
-__device__ __forceinline__ float load_f32(const __nv_bfloat16* p) { return __bfloat162float(*p); }
-__device__ __forceinline__ void store_f32(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store_f32(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
-
-__device__ __forceinline__ float warp_max(float x) {
+// C keys (records at `rec`) into the online softmax of R rows.
+template <int DH, int R, int C, bool SHIFT>
+__device__ __forceinline__ void attend(const float* rec, const float (&qr)[R][DH],
+                                       float (&acc)[R][DH], float (&m)[R], float (&l)[R]) {
+  constexpr int SD = Width<DH>::SD, E = Width<DH>::E;
+  float s[R][C];
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
+  for (int c = 0; c < C; ++c) {
+    float kc[DH];
+    load_vec<DH>(rec + c * E, kc);
+#pragma unroll
+    for (int r = 0; r < R; ++r) s[r][c] = dot<DH>(qr[r], kc);
+  }
+  if constexpr (SHIFT) {
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      float mx = m[r];
+#pragma unroll
+      for (int c = 0; c < C; ++c) mx = fmaxf(mx, s[r][c]);
+      const float corr = exp2_<true>(m[r] - mx);  // 0 on the first chunk (m = -inf)
+      m[r] = mx;
+      l[r] *= corr;
+#pragma unroll
+      for (int d = 0; d < DH; ++d) acc[r][d] *= corr;
+    }
+  }
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    float vc[DH];
+    load_vec<DH>(rec + c * E + SD, vc);
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const float p = exp2_<SHIFT>(s[r][c] - m[r]);
+      l[r] += p;
+#pragma unroll
+      for (int d = 0; d < DH; ++d) acc[r][d] = fmaf(p, vc[d], acc[r][d]);
+    }
+  }
 }
 
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
+// The n staged keys at `keys` into the online softmax of R rows.
+template <int DH, int R, int C, bool SHIFT>
+__device__ __forceinline__ void attend_tile(const float* keys, int n, const float (&qr)[R][DH],
+                                            float (&acc)[R][DH], float (&m)[R], float (&l)[R]) {
+  constexpr int E = Width<DH>::E;
+  int j = 0;
+  for (; j + C <= n; j += C) attend<DH, R, C, SHIFT>(keys + (size_t)j * E, qr, acc, m, l);
+  for (; j < n; ++j) attend<DH, R, 1, SHIFT>(keys + (size_t)j * E, qr, acc, m, l);
 }
 
-// MAXDH bounds the per-lane register arrays; head_dim <= MAXDH is the runtime width.
-template <typename T, int MAXDH>
-__global__ void __launch_bounds__(kThreads)
+template <typename T, int DH>
+__global__ void __launch_bounds__(kMaxThreads)
     blockdiag_mha_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                              const T* __restrict__ v, T* __restrict__ out, int seq,
-                             int n_head, int head_dim, float scale, int shift) {
-  extern __shared__ float smem[];
-  float* ks = smem;                   // (Dh, T): ks[d * seq + j] = k[b, h, d, j]
-  float* vs = smem + head_dim * seq;  // (Dh, T): vs[d * seq + j] = v[b, h, j, d]
+                             int n_head, int head_dim, float q_scale, int shift) {
+  constexpr int R = Width<DH>::R, C = Width<DH>::C;
+  constexpr int KT = tile<DH>();
+  extern __shared__ float4 smem4[];
+  float* keys = reinterpret_cast<float*>(smem4);
 
   const int h = blockIdx.y;
   const int b = blockIdx.z;
@@ -76,86 +113,73 @@ __global__ void __launch_bounds__(kThreads)
   const size_t kv_offset = ((size_t)b * n_head + h) * (size_t)head_dim * seq;
   const T* kbh = k + kv_offset;
   const T* vbh = v + kv_offset;
-  for (int i = threadIdx.x; i < head_dim * seq; i += kThreads) {
-    ks[i] = load_f32(kbh + i);
-    const int j = i / head_dim;
-    const int d = i - j * head_dim;
-    vs[d * seq + j] = load_f32(vbh + i);
+  const int row0 = blockIdx.x * blockDim.x * R + threadIdx.x;
+
+  float qr[R][DH], acc[R][DH], m[R], l[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int row = row0 + r * blockDim.x;
+    const T* qrow = q + ((size_t)b * seq + min(row, seq - 1)) * d_model + (size_t)h * head_dim;
+#pragma unroll
+    for (int d = 0; d < DH; ++d) {
+      qr[r][d] = d < head_dim ? load_f32(qrow + d) * q_scale : 0.f;
+      acc[r][d] = 0.f;
+    }
+    m[r] = shift ? -INFINITY : 0.f;
+    l[r] = 0.f;
   }
-  __syncthreads();
 
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int row0 = blockIdx.x * kRowsPerBlock;
-  for (int r = warp; r < kRowsPerBlock; r += kWarps) {
-    const int row = row0 + r;
-    if (row >= seq) break;  // uniform across the warp
-    const T* qrow = q + ((size_t)b * seq + row) * d_model + (size_t)h * head_dim;
-    float qr[MAXDH];
-#pragma unroll
-    for (int d = 0; d < MAXDH; ++d) qr[d] = d < head_dim ? load_f32(qrow + d) : 0.f;
+  for (int j0 = 0; j0 < seq; j0 += KT) {
+    const int n = min(KT, seq - j0);
+    if (j0 > 0) __syncthreads();  // every thread is done with the previous tile
+    stage<T, DH>(keys, n, head_dim, kbh + j0, 1, (size_t)seq, 1.f, vbh + (size_t)j0 * head_dim,
+                 (size_t)head_dim, 1);
+    __syncthreads();
+    if (shift)
+      attend_tile<DH, R, C, true>(keys, n, qr, acc, m, l);
+    else
+      attend_tile<DH, R, C, false>(keys, n, qr, acc, m, l);
+  }
 
-    float row_max = 0.f;
-    if (shift) {
-      float m = -INFINITY;
-      for (int j = lane; j < seq; j += 32) {
-        float s = 0.f;
 #pragma unroll
-        for (int d = 0; d < MAXDH; ++d)
-          if (d < head_dim) s = fmaf(qr[d], ks[d * seq + j], s);
-        m = fmaxf(m, s * scale);
-      }
-      row_max = warp_max(m);
-    }
-
-    float denom = 0.f;
-    float acc[MAXDH];
-#pragma unroll
-    for (int d = 0; d < MAXDH; ++d) acc[d] = 0.f;
-    for (int j = lane; j < seq; j += 32) {
-      float s = 0.f;
-#pragma unroll
-      for (int d = 0; d < MAXDH; ++d)
-        if (d < head_dim) s = fmaf(qr[d], ks[d * seq + j], s);
-      const float p = expf(s * scale - row_max);
-      denom += p;
-#pragma unroll
-      for (int d = 0; d < MAXDH; ++d)
-        if (d < head_dim) acc[d] = fmaf(p, vs[d * seq + j], acc[d]);
-    }
-    denom = fmaxf(warp_sum(denom), 1e-30f);
+  for (int r = 0; r < R; ++r) {
+    const int row = row0 + r * blockDim.x;
+    if (row >= seq) continue;
+    const float inv = 1.f / fmaxf(l[r], 1e-30f);
     T* orow = out + ((size_t)b * seq + row) * d_model + (size_t)h * head_dim;
 #pragma unroll
-    for (int d = 0; d < MAXDH; ++d) {
-      if (d < head_dim) {
-        const float a = warp_sum(acc[d]);
-        if (lane == d) store_f32(orow + d, a / denom);
-      }
-    }
+    for (int d = 0; d < DH; ++d)
+      if (d < head_dim) store_f32(orow + d, acc[r][d] * inv);
   }
 }
 
-template <typename T, int MAXDH>
+template <typename T, int DH>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out, int batch, int seq,
                    int n_head, int head_dim, int shift, cudaStream_t stream) {
-  const size_t smem = 2 * sizeof(float) * (size_t)head_dim * seq;
-  auto kernel = blockdiag_mha_fwd_kernel<T, MAXDH>;
+  constexpr int R = Width<DH>::R;
+  const size_t smem = sizeof(float) * Width<DH>::E * (size_t)min(seq, tile<DH>());
+  auto kernel = blockdiag_mha_fwd_kernel<T, DH>;
   if (smem > kDefaultSmem) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
   }
-  const dim3 grid((seq + kRowsPerBlock - 1) / kRowsPerBlock, n_head, batch);
-  const float scale = 1.0f / sqrtf((float)head_dim);
-  kernel<<<grid, kThreads, smem, stream>>>(static_cast<const T*>(q), static_cast<const T*>(k),
-                                           static_cast<const T*>(v), static_cast<T*>(out), seq,
-                                           n_head, head_dim, scale, shift);
+  // The fewest warps that give every thread R rows, up to kMaxThreads; then row tiles.
+  const int per_thread = (seq + R - 1) / R;
+  const int threads = min(kMaxThreads, (per_thread + 31) / 32 * 32);
+  const int rows = threads * R;
+  const dim3 grid((seq + rows - 1) / rows, n_head, batch);
+  const float q_scale = kLog2e / sqrtf((float)head_dim);
+  kernel<<<grid, threads, smem, stream>>>(static_cast<const T*>(q), static_cast<const T*>(k),
+                                          static_cast<const T*>(v), static_cast<T*>(out), seq,
+                                          n_head, head_dim, q_scale, shift);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t dispatch_head_dim(const void* q, const void* k, const void* v, void* out, int batch,
                               int seq, int n_head, int head_dim, int shift, cudaStream_t stream) {
+  if (head_dim <= 6) return launch<T, 6>(q, k, v, out, batch, seq, n_head, head_dim, shift, stream);
   if (head_dim <= 8) return launch<T, 8>(q, k, v, out, batch, seq, n_head, head_dim, shift, stream);
   if (head_dim <= 16)
     return launch<T, 16>(q, k, v, out, batch, seq, n_head, head_dim, shift, stream);
@@ -168,7 +192,7 @@ cudaError_t dispatch_head_dim(const void* q, const void* k, const void* v, void*
 
 // dtype: 0 = float32, 1 = bfloat16.  `device` is the CUDA ordinal the tensors live on.
 // Returns the cudaError_t of the launch (0 = success).  The caller checks shapes,
-// contiguity and shared-memory size beforehand.
+// contiguity and the sequence ceiling beforehand.
 extern "C" int fdtpu_blockdiag_mha_fwd(const void* q, const void* k, const void* v, void* out,
                                        int dtype, int batch, int seq, int n_head, int head_dim,
                                        int shift, int device, void* stream) {

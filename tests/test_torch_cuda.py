@@ -133,6 +133,73 @@ def test_bwd_kernel_raises_instead_of_falling_back(cuda):
         bda.blockdiag_mha_bwd(q, k, v, torch.zeros_like(q))
 
 
+# T at the edges of the B1/B2 designs: chunks of 8 keys (31, 33); row tiles of
+# 2 x threads rows, threads a multiple of 32 up to 256 (64/65, 192/193, 512/513);
+# key tiles of 256 records at Dh <= 8, 128 at Dh 16, 64 at Dh 32 (64/65, 128/129,
+# 256/257).
+EDGE_T = [1, 31, 33, 64, 65, 128, 129, 192, 193, 256, 257, 512, 513]
+
+
+@pytest.mark.parametrize("t", EDGE_T)
+@pytest.mark.parametrize("dh", [6, 16, 32])
+def test_kernels_at_tile_edges(cuda, t, dh):
+    q, k, v = _inputs(cuda, 2, t, 2, dh)
+    g = torch.randn(q.shape, generator=cuda, device="cuda")
+    for shift in (True, False):
+        torch.testing.assert_close(bda.blockdiag_mha(q, k, v, shift=shift),
+                                   bda.blockdiag_mha_plain(q, k, v, shift), rtol=0, atol=2e-4)
+    for a, b in zip(bda.blockdiag_mha_bwd(q, k, v, g), bda.blockdiag_mha_bwd_plain(q, k, v, g)):
+        torch.testing.assert_close(a, b, rtol=0, atol=2e-4)
+
+
+# B 1 and H 1: one block, fewer than the card's SMs; the earlier kernels' T
+# ceiling (2 x 4 x Dh x T bytes <= 232,448) at Dh 6, 32 and 1; B2's row
+# statistics at the last T they fit in shared memory and the first they do not.
+@pytest.mark.parametrize("shape", [(1, 187, 1, 6), (1, 4842, 1, 6), (1, 908, 2, 32),
+                                   (1, 29056, 1, 1), (1, 16640, 1, 6), (1, 16641, 1, 6)])
+def test_kernels_at_one_block_and_the_ceilings(cuda, shape):
+    q, k, v = _inputs(cuda, *shape)
+    g = torch.randn(q.shape, generator=cuda, device="cuda")
+    torch.testing.assert_close(bda.blockdiag_mha(q, k, v), bda.blockdiag_mha_plain(q, k, v),
+                               rtol=0, atol=2e-4)
+    for a, b in zip(bda.blockdiag_mha_bwd(q, k, v, g), bda.blockdiag_mha_bwd_plain(q, k, v, g)):
+        torch.testing.assert_close(a, b, rtol=0, atol=2e-4)
+
+
+@pytest.mark.parametrize("kind", ["negative", "underflow"])
+@pytest.mark.parametrize("shift", [True, False])
+def test_kernel_special_rows_at_the_flagship(cuda, kind, shift):
+    b, t, h, dh = 128, 187, 12, 6
+    a = {"negative": 3.0, "underflow": 50.0}[kind]
+    q = torch.full((b, t, h * dh), a, device="cuda")
+    k = torch.full((b, h, dh, t), -a, device="cuda")
+    v = torch.randn((b, h, t, dh), generator=cuda, device="cuda")
+    out = bda.blockdiag_mha(q, k, v, shift=shift)
+    torch.testing.assert_close(out, bda.blockdiag_mha_plain(q, k, v, shift), rtol=0, atol=2e-4)
+
+
+@pytest.mark.parametrize("shape", [(64, 187, 12, 6), (1, 700, 2, 6)])
+def test_bwd_kernel_is_deterministic(cuda, shape):
+    q, k, v = _inputs(cuda, *shape)
+    g = torch.randn(q.shape, generator=cuda, device="cuda")
+    first = bda.blockdiag_mha_bwd(q, k, v, g)
+    second = bda.blockdiag_mha_bwd(q, k, v, g)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("shape", [(128, 187, 12, 6), (64, 187, 12, 6)])
+def test_kernels_bf16_at_the_main_shapes(cuda, shape):
+    q, k, v = _inputs(cuda, *shape)
+    g = torch.randn(q.shape, generator=cuda, device="cuda")
+    low = [a.bfloat16() for a in (q, k, v, g)]
+    out = bda.blockdiag_mha(*low[:3])
+    torch.testing.assert_close(out.float(), bda.blockdiag_mha_plain(q, k, v), rtol=0, atol=5e-2)
+    for a, b in zip(bda.blockdiag_mha_bwd(*low), bda.blockdiag_mha_bwd_plain(q, k, v, g)):
+        assert a.dtype == torch.bfloat16
+        torch.testing.assert_close(a.float(), b, rtol=0, atol=5e-2)
+
+
 MHA_SHAPES = [(128, 24, 187, 12, 6), (128, 187, 187, 12, 6), (16, 501, 501, 12, 6),
               (3, 5, 40, 2, 6), (2, 64, 1024, 4, 8), (2, 33, 17, 3, 16), (1, 7, 9, 2, 32)]
 
