@@ -12,12 +12,14 @@ Phases (any failure exits non-zero and prints no result):
    ``nvcc`` per source, in parallel.
 2. Kernels: each hand-written kernel against its plain PyTorch version on the
    card, at the main path's shapes (B1 at the serving batch, B2 at the
-   training batch, B4 at the token level's rows against all keys and at the
-   KV level's square shape), with its time, the plain version's time, a
+   training batch, B4 at the token level's rows against all keys, at the
+   KV level's square shape and past 5000 keys), with its time (and B4's
+   device time from the profiler), the plain version's time, a
    one-call PyTorch yardstick (``library_ms``, timed only) and the least time
    the card could take (``bound_ms``); then B3, the autograd Function over B1
    and B2, against autograd through the plain forward, and its device time;
-   B1's and B2's float32 times at head_dim 4..32 (which pipe binds).
+   B1's and B2's float32 and B4's float32 and bfloat16 times at head_dim
+   4..32 (which pipe binds).
 3. Slice: the flagship score model (d_model 72, 10 layers, 12 heads, FFN
    2048, 187 frequency tokens; random weights from a seed) on CUDA with the
    block-diagonal attention kernel: ``score_apply`` against the einsum path
@@ -34,7 +36,7 @@ Phases (any failure exits non-zero and prints no result):
    steps each, with B1 counted once per layer and FULL step and B4 once per
    layer and TOPK, MIXED or CACHED step; the cost of the K/V store's
    transposed copy after a blockdiag refresh; where a 200-step token-level
-   window's time goes.
+   and KV-event window's time goes.
 5. Training: one training step's parameter gradients on the kernel path
    against the einsum path; then ``Trainer.fit`` of the flagship for 2
    epochs (2000 synthetic samples, batch 64: 32 train and 32 val batches an
@@ -51,6 +53,7 @@ case's times, and every case's under "cases"); the last is
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import math
 import subprocess
@@ -81,6 +84,10 @@ TRAIN_EPOCHS = 2
 NUM_STEPS = 1000
 NUM_SAMPLES = 256
 SAMPLE_BATCH = 128
+# B4 in bfloat16 against the plain version of the same bfloat16 inputs: the
+# limit past rtol 2^-7, four times the largest reading on the H100 (1.95e-3,
+# PERF.md §6).
+MHA_SAME_ATOL = 8e-3
 
 
 class SmokeFailure(Exception):
@@ -196,18 +203,60 @@ def kernel_phase(torch, bda) -> list[dict]:
     return results
 
 
+@functools.lru_cache(maxsize=None)
+def max_sm_clock_mhz() -> float:
+    return float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.split()[0])
+
+
+def mufu_floor_ms(torch, exps: int) -> float:
+    """Least time for ``exps`` float32 exps on the card's special-function
+    units: 16 a clock an SM (H100) at the card's top SM clock."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return 1e3 * exps / (16 * sms * max_sm_clock_mhz() * 1e6)
+
+
+def device_ms(torch, fn, kernel: str, reps: int = 20) -> float:
+    """Mean device time a call of the CUDA kernels whose name holds
+    ``kernel`` (torch.profiler), without the host's launch cost."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total = 0.0
+    for e in prof.key_averages():
+        if kernel in e.key:
+            total += getattr(e, "self_device_time_total", None) or e.self_cuda_time_total
+    return total / 1e3 / reps
+
+
 def mha_kernel_phase(torch, mha) -> list[dict]:
     """B4 against its plain version at the token level's TOPK shape (24 rows
-    against 187 keys), the KV level's square shape and T = 501."""
+    against 187 keys), the KV level's square shape, T = 501 and Tk = 5000 (past
+    the earlier kernel's shared-memory limit); bfloat16 against the plain
+    version both of the same bfloat16 inputs and of the unrounded float32 ones."""
     import torch.nn.functional as F
 
     g = torch.Generator(device="cuda").manual_seed(12)
     b, t, h, dh = FLAGSHIP.values()
     # Tolerances: float32 sums in another order than the plain version's
-    # einsums, exp2 of pre-scaled scores: 2e-4, B1's bound; bfloat16 inputs
-    # and weights against the float32 plain version of the unrounded inputs
-    # (8-bit rounding of values of magnitude ~3): 5e-2.
-    cases = [("topk", (b, 24, t)), ("square", (b, t, t)), ("t501", (16, 501, 501))]
+    # einsums, exp2 of pre-scaled scores: 2e-4, B1's bound.  bfloat16 against
+    # the float32 plain version of the unrounded inputs (8-bit rounding of
+    # values of magnitude ~3): 5e-2.  bfloat16 against the plain version of the
+    # same bfloat16 inputs: both round the output's float32 sum to bf16, and
+    # sums in another order may round one bf16 ulp apart: rtol 2^-7.  Both also
+    # round the weights to bf16 from float32 values a few float32 ulps apart
+    # (exp2 against exp, a reciprocal against a division), so now and then a
+    # weight w rounds one bf16 ulp apart and moves its output by ~2^-8 w |v|:
+    # atol MHA_SAME_ATOL, four times the largest such reading on the H100.
+    cases = [("topk", (b, 24, t)), ("square", (b, t, t)), ("t501", (16, 501, 501)),
+             ("tk5000", (4, t, 5000))]
     results = []
     for name, (batch, tq, tk) in cases:
         q32 = torch.randn((batch, tq, h, dh), generator=g, device="cuda")
@@ -221,6 +270,16 @@ def mha_kernel_phase(torch, mha) -> list[dict]:
             label = f"{name}_{str(dtype).split('.')[-1]}"
             check(bool(torch.isfinite(out).all()), f"{label}: B4 output not finite")
             check(err <= tol, f"{label}: B4 max_abs_err {err:.3g} > {tol}")
+            same = {}
+            if dtype == torch.bfloat16:
+                ref = mha.mha_plain(q, k, v).float()
+                excess = float(((out.float() - ref).abs() - 2 ** -7 * ref.abs()).max())
+                same = dict(same_input_err=float((out.float() - ref).abs().max()),
+                            same_input_excess=excess, same_input_atol=MHA_SAME_ATOL,
+                            same_input_rtol=2 ** -7)
+                check(excess <= MHA_SAME_ATOL, f"{label}: B4 against the plain version of "
+                      f"the same bf16 inputs exceeds rtol 2^-7 by {excess:.3g} > atol "
+                      f"{MHA_SAME_ATOL}")
             qh, kh, vh = (a.transpose(1, 2).contiguous() for a in (q, k, v))
 
             def library():
@@ -229,11 +288,14 @@ def mha_kernel_phase(torch, mha) -> list[dict]:
             bound_ms, bound_by = attention_bound_ms(batch, tq, h, dh, q.element_size(),
                                                     dtype == torch.bfloat16, kv_len=tk)
             rec = dict(case=label, shape=[batch, tq, tk, h, dh], dtype=str(dtype).split(".")[-1],
-                       max_abs_err=err, tol=tol,
+                       max_abs_err=err, tol=tol, **same,
                        kernel_ms=time_ms(torch, lambda: mha.fused_mha_cuda(q, k, v)),
+                       device_ms=device_ms(torch, lambda: mha.fused_mha_cuda(q, k, v),
+                                           "fused_mha"),
                        plain_ms=time_ms(torch, lambda: mha.mha_plain(q, k, v)),
                        library_ms=time_ms(torch, library),
-                       bound_ms=bound_ms, bound_by=bound_by)
+                       bound_ms=bound_ms, bound_by=bound_by,
+                       mufu_floor_ms=mufu_floor_ms(torch, batch * h * tq * tk))
             print("kernel_mha", json.dumps(rec), flush=True)
             results.append(rec)
     return results
@@ -339,10 +401,11 @@ def trainable_phase(torch, bda) -> dict:
     return rec
 
 
-def head_dim_sweep(torch, bda) -> None:
-    """Which pipe binds B1 and B2: float32 times at the main path's B, T, H
-    and head_dim 4..32.  The exps stay B·H·T² while the multiply-adds grow
-    with head_dim, so a time that follows head_dim is the FMA pipe's."""
+def head_dim_sweep(torch, bda, mha) -> None:
+    """Which pipe binds B1, B2 and B4: times at the main path's B, T, H and
+    head_dim 4..32 (B1, B2 in float32; B4 at the square shape in float32 and
+    bfloat16).  The exps stay B·H·T² while the multiply-adds grow with
+    head_dim, so a time that follows head_dim is the FMA (or tensor) pipe's."""
     g = torch.Generator(device="cuda").manual_seed(13)
     for dh in (4, 6, 8, 16, 32):
         for name, (b, t, h, _) in (("blockdiag_mha", FLAGSHIP.values()),
@@ -356,6 +419,14 @@ def head_dim_sweep(torch, bda) -> None:
                 ms = time_ms(torch, lambda: bda.blockdiag_mha_bwd_cuda(q, k, v, q))
             print("kernel_sweep", json.dumps({"kernel": name, "shape": [b, t, h, dh],
                                               "dtype": "float32", "ms": ms}), flush=True)
+        b, t, h, _ = FLAGSHIP.values()
+        q, k, v = (torch.randn((b, t, h, dh), generator=g, device="cuda") for _ in range(3))
+        for dtype in (torch.float32, torch.bfloat16):
+            args = [a.to(dtype) for a in (q, k, v)]
+            ms = time_ms(torch, lambda: mha.fused_mha_cuda(*args))
+            print("kernel_sweep", json.dumps({"kernel": "fused_mha", "shape": [b, t, t, h, dh],
+                                              "dtype": str(dtype).split(".")[-1], "ms": ms}),
+                  flush=True)
 
 
 def device_breakdown(torch, label: str, fn, reps: int = 3, top: int = 8,
@@ -512,7 +583,7 @@ def levels_phase(torch, bda, mha) -> dict:
     """The token and KV levels of the E²-CRF cache at the flagship: a short
     token chain on CUDA against the CPU, the three T = 1000 chains with their
     kernel launches counted, the K/V transpose after a blockdiag refresh, and
-    a 200-step token-level window's device time."""
+    200-step token-level and KV-event windows' device time."""
     from fdtpu_torch.cache import E2CRFConfig
     from fdtpu_torch.diffusion import VPScheduler
     from fdtpu_torch.models import ScoreModel, ScoreModelConfig, init_score_model
@@ -607,12 +678,15 @@ def levels_phase(torch, bda, mha) -> dict:
     print(f"levels: K/V transpose after a blockdiag refresh {transpose_ms:.4f} ms per layer, "
           f"{layers * transpose_ms:.4f} ms per FULL step", flush=True)
 
-    window = DiffusionSampler(model, SAMPLE_BATCH, use_cache=True, cache_kwargs=TOKEN_KWARGS)
-    device_breakdown(
-        torch, "token-chain-200-steps",
-        lambda: window.sample(SAMPLE_BATCH, 200, generator=torch.Generator("cuda").manual_seed(3)),
-        reps=1, top=8,
-    )
+    for label, kwargs in (("token-chain-200-steps", TOKEN_KWARGS),
+                          ("kv-event-chain-200-steps", KV_EVENT_KWARGS)):
+        window = DiffusionSampler(model, SAMPLE_BATCH, use_cache=True, cache_kwargs=kwargs)
+        device_breakdown(
+            torch, label,
+            lambda: window.sample(SAMPLE_BATCH, 200,
+                                  generator=torch.Generator("cuda").manual_seed(3)),
+            reps=1, top=8,
+        )
     chains["transpose_ms"] = transpose_ms
     return chains
 
@@ -768,7 +842,7 @@ def main() -> int:
     mha_results = mha_kernel_phase(torch, mha)
     bwd_results = bwd_kernel_phase(torch, bda)
     trainable = trainable_phase(torch, bda)
-    head_dim_sweep(torch, bda)
+    head_dim_sweep(torch, bda, mha)
     chains = slice_phase(torch, bda)
     levels = levels_phase(torch, bda, mha)
     train = train_phase(torch, bda)
@@ -781,7 +855,9 @@ def main() -> int:
         cases = [{"case": r["case"], "shape": r["shape"], "dtype": r["dtype"],
                   "max_abs_err": r["max_abs_err"], "ms": r["kernel_ms"],
                   "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                  "bound_by": r["bound_by"], "library_ms": r["library_ms"]} for r in results]
+                  "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+                  **{key: r[key] for key in ("device_ms", "same_input_err")
+                     if key in r}} for r in results]
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": launches, "max_abs_err": max(r["max_abs_err"] for r in fp32),
                 "ms": head["kernel_ms"], "plain_ms": head["plain_ms"],

@@ -18,6 +18,10 @@ against all Tk = T keys).  Unlike the Pallas kernel, Tq may differ from Tk,
 and there is no batch tile: the TPU kernel's fallback to ``mha_reference``
 when B is not a multiple of its tile is a tiling artifact, not ported.
 
+The kernel takes head_dim 1..32, any Tq and Tk up to ``MAX_SEQ``: float32
+runs B1's one-pass design over keys streamed through shared memory, bfloat16
+tensor-core tiles (two passes past 256 keys), so shared memory caps neither.
+
 A CPU tensor goes to :func:`mha_plain`; a CUDA tensor launches the kernel or
 raises — there is no fallback.  ``launches`` counts kernel launches.  The
 kernel records no gradient: it serves the sampling chains only.
@@ -35,7 +39,8 @@ from fdtpu_torch.kernels import build
 
 SOURCE = "fused_attention"
 MAX_HEAD_DIM = 32
-SMEM_LIMIT = 232_448  # bytes of shared memory a Hopper block may use
+# Longest Tk the kernel takes: every key index in it fits an int32 (B1's ceiling).
+MAX_SEQ = 32_768
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 launches = 0
@@ -82,10 +87,10 @@ def _library() -> ctypes.CDLL:
     return _lib
 
 
-def fused_mha_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """Launch the Hopper kernel on CUDA tensors (no fallback)."""
-    global launches
-    b, tq, h, dh = q.shape
+def _check_kernel_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    """What the kernel refuses: another dtype, a strided input, head_dim over
+    32, Tk outside 1..``MAX_SEQ``, B or H over the grid's 65535."""
+    b, _, h, dh = q.shape
     tk = k.shape[1]
     if q.dtype not in _DTYPE_CODE:
         raise TypeError(f"fused_mha kernel takes float32 or bfloat16, got {q.dtype}")
@@ -93,16 +98,18 @@ def fused_mha_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.T
         raise ValueError("fused_mha kernel needs contiguous inputs")
     if not 1 <= dh <= MAX_HEAD_DIM:
         raise ValueError(f"fused_mha kernel takes head_dim 1..{MAX_HEAD_DIM}, got {dh}")
-    # One head's K and V slabs (odd leading dimension) and its columns of a
-    # 32-row query tile, float32, must fit one block's shared memory.
-    smem = 4 * dh * (2 * (tk | 1) + 32)
-    if tk < 1 or smem > SMEM_LIMIT:
-        raise ValueError(
-            f"fused_mha kernel stages one head's K and V of Tk={tk}, Dh={dh} in {smem} "
-            f"bytes of shared memory; it takes 1 <= Tk and at most {SMEM_LIMIT} bytes"
-        )
+    if not 1 <= tk <= MAX_SEQ:
+        raise ValueError(f"fused_mha kernel takes 1 <= Tk <= {MAX_SEQ}, got {tk}")
     if b > 65535 or h > 65535:
         raise ValueError(f"fused_mha kernel grid takes B, H <= 65535, got {b}, {h}")
+
+
+def fused_mha_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Launch the Hopper kernel on CUDA tensors (no fallback)."""
+    global launches
+    b, tq, h, dh = q.shape
+    tk = k.shape[1]
+    _check_kernel_inputs(q, k, v)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
         raise NotImplementedError(
             "fused_mha's kernel records no gradient; run it under torch.no_grad()"

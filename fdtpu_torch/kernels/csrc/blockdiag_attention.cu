@@ -47,56 +47,6 @@
 
 namespace {
 
-// C keys (records at `rec`) into the online softmax of R rows.
-template <int DH, int R, int C, bool SHIFT>
-__device__ __forceinline__ void attend(const float* rec, const float (&qr)[R][DH],
-                                       float (&acc)[R][DH], float (&m)[R], float (&l)[R]) {
-  constexpr int SD = Width<DH>::SD, E = Width<DH>::E;
-  float s[R][C];
-#pragma unroll
-  for (int c = 0; c < C; ++c) {
-    float kc[DH];
-    load_vec<DH>(rec + c * E, kc);
-#pragma unroll
-    for (int r = 0; r < R; ++r) s[r][c] = dot<DH>(qr[r], kc);
-  }
-  if constexpr (SHIFT) {
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      float mx = m[r];
-#pragma unroll
-      for (int c = 0; c < C; ++c) mx = fmaxf(mx, s[r][c]);
-      const float corr = exp2_<true>(m[r] - mx);  // 0 on the first chunk (m = -inf)
-      m[r] = mx;
-      l[r] *= corr;
-#pragma unroll
-      for (int d = 0; d < DH; ++d) acc[r][d] *= corr;
-    }
-  }
-#pragma unroll
-  for (int c = 0; c < C; ++c) {
-    float vc[DH];
-    load_vec<DH>(rec + c * E + SD, vc);
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      const float p = exp2_<SHIFT>(s[r][c] - m[r]);
-      l[r] += p;
-#pragma unroll
-      for (int d = 0; d < DH; ++d) acc[r][d] = fmaf(p, vc[d], acc[r][d]);
-    }
-  }
-}
-
-// The n staged keys at `keys` into the online softmax of R rows.
-template <int DH, int R, int C, bool SHIFT>
-__device__ __forceinline__ void attend_tile(const float* keys, int n, const float (&qr)[R][DH],
-                                            float (&acc)[R][DH], float (&m)[R], float (&l)[R]) {
-  constexpr int E = Width<DH>::E;
-  int j = 0;
-  for (; j + C <= n; j += C) attend<DH, R, C, SHIFT>(keys + (size_t)j * E, qr, acc, m, l);
-  for (; j < n; ++j) attend<DH, R, 1, SHIFT>(keys + (size_t)j * E, qr, acc, m, l);
-}
-
 template <typename T, int DH>
 __global__ void __launch_bounds__(kMaxThreads)
     blockdiag_mha_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,

@@ -1,6 +1,7 @@
-// What the block-diagonal attention kernels B1 (blockdiag_attention.cu) and B2
-// (blockdiag_attention_bwd.cu) share: the compute widths, the staged record layout in
-// shared memory, its vector loads, the dot product and exp2.
+// What the float32 attention kernels B1 (blockdiag_attention.cu), B2
+// (blockdiag_attention_bwd.cu) and B4's float32 path (fused_attention.cu) share: the
+// compute widths, the staged record layout in shared memory, its vector loads, the dot
+// product, exp2 and the chunked online softmax of B1 and B4.
 //
 // A staged record is two halves of SD floats, [a_0..a_{Dh-1}, 0.. | b_0..b_{Dh-1}, 0..]
 // (k | v for keys, q | g for rows), SD the compute width DH rounded up to 4, so that a
@@ -98,6 +99,57 @@ __device__ __forceinline__ void stage(float* buf, int n, int head_dim, const T* 
       *reinterpret_cast<float4*>(buf + (size_t)i * E + c) =
           make_float4(rec[c], rec[c + 1], rec[c + 2], rec[c + 3]);
   }
+}
+
+// C keys (records at `rec`) into the online softmax of R rows: m the running max and l
+// the running sum of exp2(s - m), in the exp2 units of q pre-scaled by log2(e)/sqrt(Dh).
+template <int DH, int R, int C, bool SHIFT>
+__device__ __forceinline__ void attend(const float* rec, const float (&qr)[R][DH],
+                                       float (&acc)[R][DH], float (&m)[R], float (&l)[R]) {
+  constexpr int SD = Width<DH>::SD, E = Width<DH>::E;
+  float s[R][C];
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    float kc[DH];
+    load_vec<DH>(rec + c * E, kc);
+#pragma unroll
+    for (int r = 0; r < R; ++r) s[r][c] = dot<DH>(qr[r], kc);
+  }
+  if constexpr (SHIFT) {
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      float mx = m[r];
+#pragma unroll
+      for (int c = 0; c < C; ++c) mx = fmaxf(mx, s[r][c]);
+      const float corr = exp2_<true>(m[r] - mx);  // 0 on the first chunk (m = -inf)
+      m[r] = mx;
+      l[r] *= corr;
+#pragma unroll
+      for (int d = 0; d < DH; ++d) acc[r][d] *= corr;
+    }
+  }
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    float vc[DH];
+    load_vec<DH>(rec + c * E + SD, vc);
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const float p = exp2_<SHIFT>(s[r][c] - m[r]);
+      l[r] += p;
+#pragma unroll
+      for (int d = 0; d < DH; ++d) acc[r][d] = fmaf(p, vc[d], acc[r][d]);
+    }
+  }
+}
+
+// The n staged keys at `keys` into the online softmax of R rows.
+template <int DH, int R, int C, bool SHIFT>
+__device__ __forceinline__ void attend_tile(const float* keys, int n, const float (&qr)[R][DH],
+                                            float (&acc)[R][DH], float (&m)[R], float (&l)[R]) {
+  constexpr int E = Width<DH>::E;
+  int j = 0;
+  for (; j + C <= n; j += C) attend<DH, R, C, SHIFT>(keys + (size_t)j * E, qr, acc, m, l);
+  for (; j < n; ++j) attend<DH, R, 1, SHIFT>(keys + (size_t)j * E, qr, acc, m, l);
 }
 
 }  // namespace

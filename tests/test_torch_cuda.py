@@ -10,6 +10,13 @@ installed:
 
 Tolerances: atol 2e-4 in float32 (the bound tests/test_kernels.py holds the
 Pallas kernel to), 5e-2 for bfloat16 inputs against the float32 plain version.
+B4 in bfloat16 against the plain version of the same bfloat16 inputs: both
+round the output's float32 sum to bf16, and sums in another order may round
+one bf16 ulp apart (rtol 2^-7); both also round the weights to bf16 from
+float32 values a few float32 ulps apart (exp2 against exp, a reciprocal
+against a division), so now and then a weight w rounds one bf16 ulp apart and
+moves its output by ~2^-8 w |v| (atol 8e-3, four times the largest such
+reading on the H100, as in chip_smoke.py).
 """
 
 import pytest
@@ -210,6 +217,17 @@ def _mha_inputs(gen, b, tq, tk, h, dh):
             torch.randn((b, tk, h, dh), generator=gen, device="cuda"))
 
 
+def _assert_mha_matches_plain(q, k, v):
+    """B4 in float32 against the plain version; in bfloat16 against the plain
+    version of the same bf16 inputs and of the unrounded float32 ones."""
+    torch.testing.assert_close(mha.fused_mha(q, k, v), mha.mha_plain(q, k, v), rtol=0, atol=2e-4)
+    low = [a.bfloat16() for a in (q, k, v)]
+    out = mha.fused_mha(*low)
+    assert out.dtype == torch.bfloat16
+    torch.testing.assert_close(out.float(), mha.mha_plain(*low).float(), rtol=2 ** -7, atol=8e-3)
+    torch.testing.assert_close(out.float(), mha.mha_plain(q, k, v), rtol=0, atol=5e-2)
+
+
 @pytest.mark.parametrize("shape", MHA_SHAPES)
 def test_mha_kernel_matches_plain_float32(cuda, shape):
     q, k, v = _mha_inputs(cuda, *shape)
@@ -220,12 +238,11 @@ def test_mha_kernel_matches_plain_float32(cuda, shape):
     torch.testing.assert_close(out, mha.mha_plain(q, k, v), rtol=0, atol=2e-4)
 
 
-@pytest.mark.parametrize("shape", MHA_SHAPES[:3])
+@pytest.mark.parametrize("shape", MHA_SHAPES)
 def test_mha_kernel_bf16_against_float32_plain(cuda, shape):
-    q, k, v = _mha_inputs(cuda, *shape)
-    out = mha.fused_mha(*(a.bfloat16() for a in (q, k, v)))
-    assert out.dtype == torch.bfloat16
-    torch.testing.assert_close(out.float(), mha.mha_plain(q, k, v), rtol=0, atol=5e-2)
+    """bf16 against the plain version of the unrounded float32 inputs and of
+    the same bf16 inputs (and float32 against the plain version)."""
+    _assert_mha_matches_plain(*_mha_inputs(cuda, *shape))
 
 
 def test_mha_kernel_raises_instead_of_falling_back(cuda):
@@ -236,10 +253,56 @@ def test_mha_kernel_raises_instead_of_falling_back(cuda):
         mha.fused_mha(q, k.transpose(0, 1).contiguous().transpose(0, 1), v)
     with pytest.raises(ValueError, match="head_dim"):
         mha.fused_mha(*_mha_inputs(cuda, 1, 4, 8, 1, 40))
-    with pytest.raises(ValueError, match="shared memory"):
-        mha.fused_mha(*_mha_inputs(cuda, 1, 4, 5000, 1, 6))
+    with pytest.raises(ValueError, match=f"Tk <= {mha.MAX_SEQ}"):
+        mha.fused_mha(*_mha_inputs(cuda, 1, 4, mha.MAX_SEQ + 1, 1, 6))
     with pytest.raises(NotImplementedError, match="no gradient"):
         mha.fused_mha(q.requires_grad_(), k, v)
+
+
+# Tk at the edges of B4's designs: float32 chunks of 8 keys and key tiles of 256
+# records at Dh <= 8 (31-33, 255-257, 511-513); bfloat16 score tiles of 8 keys,
+# one register tile up to 192 keys, two passes over tiles of 256 past it
+# (191-193, 255-257, 511-513).  Tq at one row, the token level's 24 (one row a
+# thread, 16-row warps) and 187.
+@pytest.mark.parametrize("tk", [1, 31, 32, 33, 191, 192, 193, 255, 256, 257, 511, 512, 513])
+@pytest.mark.parametrize("tq", [1, 24, 187])
+def test_mha_kernel_at_tile_and_warp_edges(cuda, tq, tk):
+    _assert_mha_matches_plain(*_mha_inputs(cuda, 2, tq, tk, 3, 6))
+
+
+@pytest.mark.parametrize("dh", [1, 6, 8, 16, 32])
+@pytest.mark.parametrize("tq, tk", [(40, 7), (7, 300), (300, 40)])
+def test_mha_kernel_rectangular_at_every_width(cuda, dh, tq, tk):
+    _assert_mha_matches_plain(*_mha_inputs(cuda, 3, tq, tk, 5, dh))
+
+
+def test_mha_kernel_past_the_earlier_shared_memory_limit(cuda):
+    """Tk = 5000 raised "shared memory" in the first design; the keys now
+    stream through shared memory."""
+    _assert_mha_matches_plain(*_mha_inputs(cuda, 2, 24, 5000, 3, 6))
+
+
+@pytest.mark.parametrize("kind", ["negative", "underflow"])
+@pytest.mark.parametrize("tq", [24, 187])
+def test_mha_kernel_special_rows(cuda, kind, tq):
+    """Rows of large negative scores, and rows whose every score underflows
+    exp: the shifted softmax is the average of v."""
+    b, tk, h, dh = 8, 187, 12, 6
+    a = {"negative": 3.0, "underflow": 50.0}[kind]
+    q = torch.full((b, tq, h, dh), a, device="cuda")
+    k = torch.full((b, tk, h, dh), -a, device="cuda")
+    v = torch.randn((b, tk, h, dh), generator=cuda, device="cuda")
+    _assert_mha_matches_plain(q, k, v)
+    want = v.mean(dim=1, keepdim=True).expand(b, tq, h, dh)
+    torch.testing.assert_close(mha.fused_mha(q, k, v), want, rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(128, 24, 187, 12, 6), (128, 187, 187, 12, 6),
+                                   (2, 187, 700, 3, 32)])
+def test_mha_kernel_is_deterministic(cuda, dtype, shape):
+    q, k, v = (a.to(dtype) for a in _mha_inputs(cuda, *shape))
+    assert torch.equal(mha.fused_mha(q, k, v), mha.fused_mha(q, k, v))
 
 
 def test_topk_rows_on_the_card_keep_the_cpu_tie_order(cuda):
