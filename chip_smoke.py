@@ -43,6 +43,20 @@ Phases (any failure exits non-zero and prints no result):
    epoch) with finite, falling loss and the kernel launches counted (B2 once
    per layer and train step, B1 once per layer and train or val forward);
    train samples/s, ms/step and where a step's device time goes.
+6. FreqCa and FreSca: 50-step chains on CUDA against the CPU (the same noise
+   and probe uniforms; the same mode at every step; the same FreqCa ring) of
+   the score level with the FreqCa predictor, the score level with FreSca
+   (energy cutoff) and the KV event policy with FreqCa's CRF ring; the same
+   three chains at T = 1000 on one batch of 128 with B1 and B4 counted; where
+   a FreSca call's and a FreqCa skip step's time goes.
+7. Evaluation, on the network phase 5 trained: ``calibrate_tau_0`` (256 pilot
+   samples, T = 1000, batches of 128, the score level's operating point
+   without τ₀), then 256 samples uncached and 256 at the operating point,
+   taken back to the data domain and scored with ``MetricCollection``
+   (sliced Wasserstein over 1000 directions and marginal Wasserstein, time
+   and frequency domain, spectral density, self-split and dummy baselines)
+   against the datamodule's train set.  Quality is printed, not gated; B1's
+   launches are counted.
 
 Float32 matmuls run in full float32 (TF32 off for matmuls and cuDNN).  The
 line before the last is one JSON object with a record per kernel (its head
@@ -84,6 +98,15 @@ TRAIN_EPOCHS = 2
 NUM_STEPS = 1000
 NUM_SAMPLES = 256
 SAMPLE_BATCH = 128
+# The sampler's FreqCa and FreSca options on the flagship's operating points.
+FREQ_CHAINS = {
+    "score-freqca": (dict(CACHE_KWARGS, eps_predictor="freqca"), {}),
+    "score-fresca": (CACHE_KWARGS, {"use_fresca": True, "fresca_cutoff_strategy": "energy"}),
+    "kv-event-freqca": (dict(KV_EVENT_KWARGS, use_freqca=True), {}),
+}
+# configs/metrics/default.yaml with cli/sample.py's random_seed.
+METRICS_SEED = 42
+SW_DIRECTIONS = 1000
 # B4 in bfloat16 against the plain version of the same bfloat16 inputs: the
 # limit past rtol 2^-7, four times the largest reading on the H100 (1.95e-3,
 # PERF.md §6).
@@ -97,6 +120,11 @@ class SmokeFailure(Exception):
 def check(cond: bool, msg: str) -> None:
     if not cond:
         raise SmokeFailure(msg)
+
+
+def rel_err(a, b) -> float:
+    """Largest difference relative to the reference's largest magnitude."""
+    return float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
 
 
 def nvidia_smi() -> str:
@@ -511,7 +539,7 @@ def slice_phase(torch, bda) -> dict:
     x_gpu, _ = sample_chain(net, scheduler, x0, num_steps=n_short, step_noise=z[1:])
     x_ref, _ = sample_chain(net_cpu, VPScheduler(fourier_noise_scaling=True), x0.cpu(),
                             num_steps=n_short, step_noise=z[1:])
-    rel = float((x_gpu.cpu() - x_ref).abs().max() / x_ref.abs().max())
+    rel = rel_err(x_gpu.cpu(), x_ref)
     print(f"slice: {n_short}-step chain CUDA vs CPU max rel err {rel:.3g}", flush=True)
     check(rel <= 1e-4, f"short chain CUDA vs CPU rel err {rel:.3g} > 1e-4")
 
@@ -570,8 +598,8 @@ def recording(module, name: str, keep):
     orig = getattr(module, name)
     kept = []
 
-    def wrapped(*args):
-        out = orig(*args)
+    def wrapped(*args, **kwargs):
+        out = orig(*args, **kwargs)
         kept.append(keep(out))
         return out
 
@@ -618,7 +646,7 @@ def levels_phase(torch, bda, mha) -> dict:
         runs[dev] = (x.cpu(), modes, rows)
     diverged = [i for i, (a, b) in enumerate(zip(runs["cuda"][1], runs["cpu"][1])) if a != b]
     rows_differ = [i for i, (a, b) in enumerate(zip(runs["cuda"][2], runs["cpu"][2])) if a != b]
-    rel = float((runs["cuda"][0] - runs["cpu"][0]).abs().max() / runs["cpu"][0].abs().max())
+    rel = rel_err(runs["cuda"][0], runs["cpu"][0])
     modes = "".join(map(str, runs["cuda"][1]))
     print(f"levels: {n_short}-step token chain CUDA vs CPU: modes {modes}, first divergence "
           f"{diverged[:1]}, first TOPK step with other rows {rows_differ[:1]} of "
@@ -691,9 +719,245 @@ def levels_phase(torch, bda, mha) -> dict:
     return chains
 
 
+def freq_options_phase(torch, bda, mha) -> dict:
+    """FreqCa and FreSca at the flagship: 50-step chains of each of
+    ``FREQ_CHAINS`` on CUDA against the CPU, the same chains at T = 1000 with
+    their kernel launches counted, and the device work and launches of one
+    FreSca call and of one FreqCa skip step (a Taylor skip step beside it)."""
+    from fdtpu_torch.cache import E2CRFConfig, init_cache_state
+    from fdtpu_torch.diffusion import VPScheduler
+    from fdtpu_torch.models import ScoreModel, ScoreModelConfig, init_score_model
+    from fdtpu_torch.ops import fresca as pfresca
+    from fdtpu_torch.sampling import DiffusionSampler, sample_chain
+    from fdtpu_torch.sampling import sampler as psampler
+
+    cfg = ScoreModelConfig(n_channels=1, max_len=FLAGSHIP["seq"], attention_impl="blockdiag")
+    net = init_score_model(cfg, torch.Generator().manual_seed(0))
+    net_cpu = init_score_model(cfg, torch.Generator().manual_seed(0), device="cpu")
+    # The same weights through the einsum attention: a second float32 order
+    # of the same sums on the CPU, whose distance from the first is the
+    # spread the chains' FreqCa rings are read against.
+    net_cpu_einsum = init_score_model(dataclasses.replace(cfg, attention_impl="einsum"),
+                                      torch.Generator().manual_seed(0), device="cpu")
+    scheduler = VPScheduler(fourier_noise_scaling=True).with_noise_scaling(cfg.max_len, "cuda")
+    model = ScoreModel(config=cfg, network=net, scheduler=scheduler)
+    layers = cfg.num_layers
+
+    g = torch.Generator(device="cuda").manual_seed(14)
+    n_short, b_short = 50, 4
+    z = torch.randn((n_short + 1, b_short, cfg.max_len, 1), generator=g, device="cuda").cpu()
+    u = torch.rand((n_short, cfg.max_len), generator=g, device="cuda").cpu()
+    x0 = scheduler.prior_sampling((b_short, cfg.max_len, 1), noise=z[0].cuda())
+    for name, (kwargs, options) in FREQ_CHAINS.items():
+        level = kwargs["level"]
+        policy = "score_skip_decision" if level == "score" else "event_policy"
+        runs = {}
+        cpu_sched = VPScheduler(fourier_noise_scaling=True)
+        for dev, network, sched in (("cuda", net, scheduler), ("cpu", net_cpu, cpu_sched),
+                                    ("cpu-einsum", net_cpu_einsum, cpu_sched)):
+            modes, undo_modes = recording(psampler, policy,
+                                          lambda out: int(out) if isinstance(out, bool) else out[0])
+            # The energy cutoff bin of each FreSca call (a device read a
+            # step, here only).
+            bins, undo_bins = recording(pfresca, "create_frequency_masks",
+                                        lambda out: int(out[0].sum()) - 1)
+            try:
+                x, state = sample_chain(network, sched, x0.to(dev.split("-")[0]),
+                                        cache_cfg=E2CRFConfig(**kwargs), num_steps=n_short,
+                                        step_noise=z[1:], probe_noise=u, **options)
+            finally:
+                undo_modes()
+                undo_bins()
+            runs[dev] = (x.cpu(), modes, bins, state)
+        (x_gpu, m_gpu, bins_gpu, s_gpu), (x_cpu, m_cpu, bins_cpu, s_cpu) = runs["cuda"], runs["cpu"]
+        diverged = [i for i, (a, b) in enumerate(zip(m_gpu, m_cpu)) if a != b]
+        bin_flips = [i for i, (a, b) in enumerate(zip(bins_gpu, bins_cpu)) if a != b]
+        rel = rel_err(x_gpu, x_cpu)
+        ring = {}
+        if s_cpu.crf_high_hist.ndim > 1:
+            k = s_cpu.crf_t_hist.shape[0]
+            live = torch.arange(k) >= k - int(s_cpu.hist_len)
+            newest_kept = True
+            if level == "score":
+                # The score level's ring holds ε̂ = -std·score.  Entries taken
+                # at the last step, t = 1e-5, carry the VP std's cancellation
+                # (~3% between the card's exp and the CPU's, ROADMAP.md §C):
+                # they are left out, and crf_low with them when it is one.
+                last = s_cpu.crf_t_hist <= scheduler.eps
+                live &= ~last
+                newest_kept = not bool(last[-1])
+
+            def ring_err(other):
+                errs = [rel_err(other.crf_high_hist.cpu()[live], s_cpu.crf_high_hist[live])]
+                if newest_kept:
+                    errs.append(rel_err(other.crf_low.cpu(), s_cpu.crf_low))
+                return max(errs)
+
+            s_einsum = runs["cpu-einsum"][3]
+            ring = dict(hist_len=(int(s_gpu.hist_len), int(s_cpu.hist_len)),
+                        compared=int(live.sum()), crf_low_compared=newest_kept,
+                        max_rel_err=ring_err(s_gpu),
+                        cpu_spread=ring_err(s_einsum),
+                        crf_t_hist=float((s_gpu.crf_t_hist.cpu() - s_cpu.crf_t_hist).abs().max()))
+            # Tolerance: 1e-4 relative, or four times the spread between the
+            # two CPU attention orders where the chain amplifies rounding
+            # more than that (mid-chain ε̂ of a random-weight network).
+            ring["tol"] = max(1e-4, 4 * ring["cpu_spread"])
+        # Tolerance: 1e-4 relative, as the uncached short chain (slice phase);
+        # 5e-4 where the last step reused ε̂, since its score is
+        # -ε̂/std(1e-5) and that std cancels (the token chain's reason).
+        last_skipped = level == "score" and m_gpu[-1] == 0
+        tol = 5e-4 if last_skipped else 1e-4
+        line = dict(modes="".join(map(str, m_gpu)), first_divergence=diverged[:1],
+                    max_rel_err=rel, tol=tol, ring=ring)
+        if bins_gpu:
+            line.update(cutoff_bins=sorted(set(bins_gpu)), first_bin_flip=bin_flips[:1],
+                        bin_at_flip=[(bins_gpu[i], bins_cpu[i]) for i in bin_flips[:1]])
+        print(f"freq: {n_short}-step {name} chain CUDA vs CPU", json.dumps(line), flush=True)
+        check(len(m_gpu) == len(m_cpu) and not diverged,
+              f"{name} chain CUDA vs CPU: modes diverge first at step {diverged[:1]}")
+        check(not bin_flips, f"{name} chain CUDA vs CPU: the energy cutoff bin differs first at "
+              f"step {bin_flips[:1]} ({line.get('bin_at_flip')})")
+        check(rel <= tol, f"{name} chain CUDA vs CPU rel err {rel:.3g} > {tol}")
+        if ring:
+            check(ring["hist_len"][0] == ring["hist_len"][1], f"{name}: ring lengths differ")
+            check(ring["compared"] >= 2, f"{name}: fewer than two ring entries to compare")
+            check(ring["max_rel_err"] <= ring["tol"],
+                  f"{name}: FreqCa ring CUDA vs CPU rel err above its tolerance: {ring}")
+            check(ring["crf_t_hist"] <= 6e-8, f"{name}: ring timesteps differ: {ring}")
+
+    chains = {}
+    for name, (kwargs, options) in FREQ_CHAINS.items():
+        sampler = DiffusionSampler(model, SAMPLE_BATCH, use_cache=True, cache_kwargs=kwargs,
+                                   **options)
+        gen = torch.Generator(device="cuda").manual_seed(2)
+        torch.cuda.synchronize()
+        bda.launches = mha.launches = 0
+        t0 = time.perf_counter()
+        samples = sampler.sample(SAMPLE_BATCH, NUM_STEPS, generator=gen)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        b1, b4 = bda.launches, mha.launches
+        stats = sampler.get_cache_stats()
+        check(tuple(samples.shape) == (SAMPLE_BATCH, cfg.max_len, 1),
+              f"{name}: samples shape {tuple(samples.shape)}")
+        check(bool(torch.isfinite(samples).all()), f"{name}: samples not finite")
+        b4_steps = stats["mixed_steps"] + stats["cached_steps"] if kwargs["level"] == "kv" else 0
+        check(b1 == layers * stats["full_steps"],
+              f"{name}: {b1} B1 launches for {stats['full_steps']} FULL steps x {layers} layers")
+        check(b4 == layers * b4_steps, f"{name}: {b4} B4 launches for {b4_steps} steps x {layers}")
+        check(b1 > 0, f"{name}: B1 never launched")
+        state = sampler.last_cache_state
+        chains[name] = dict(seconds=seconds, samples_per_s=SAMPLE_BATCH / seconds,
+                            ms_per_step=1e3 * seconds / NUM_STEPS, launches_b1=b1,
+                            launches_b4=b4, full_steps=stats["full_steps"],
+                            mixed_steps=stats["mixed_steps"], cached_steps=stats["cached_steps"],
+                            hist_len=int(state.hist_len), cache_stats=stats)
+        print(f"chain {name}", json.dumps(chains[name]), flush=True)
+
+    # Where one FreSca call's and one skip step's time goes, at B = 128.
+    b, t_len, k = SAMPLE_BATCH, cfg.max_len, 10
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    score = torch.randn((b, t_len, 1), generator=gen, device="cuda")
+    t = torch.full((), 0.5, device="cuda")
+    std = torch.rand((b, t_len), generator=gen, device="cuda") + 0.5
+    device_breakdown(torch, "fresca-call", lambda: pfresca.apply_fresca_to_score(
+        score, 1.0, 1.5, 0.5, "energy", timestep=t, num_steps=NUM_STEPS), reps=50, top=6)
+    for label, predictor in (("freqca-skip-step", "freqca"), ("taylor-skip-step", "taylor")):
+        skip_cfg = E2CRFConfig(level="score", eps_predictor=predictor, max_history=k)
+        state = init_cache_state(skip_cfg, b, t_len, 1, "cuda").replace(
+            cold=False, step=40, last_full_step=37, eps_hat=score, eps_prev=score * 0.9,
+            eps_gap=torch.ones((), device="cuda"))
+        if predictor == "freqca":
+            state = state.replace(
+                hist_len=torch.full((), k, dtype=torch.int32, device="cuda"),
+                crf_t_hist=torch.linspace(0.99, 0.9, k, device="cuda"), crf_low=score * 0.5,
+                crf_high_hist=torch.randn((k, b, t_len, 1), generator=gen, device="cuda"))
+        device_breakdown(torch, label, lambda: psampler._skip(state, skip_cfg, t, std, t_len),
+                         reps=50, top=6)
+    return chains
+
+
+def eval_phase(torch, bda, model, dm) -> dict:
+    """Sample quality of the trained flagship, as ``cli/sample.py`` computes
+    it: τ₀ calibration, then the uncached and the cached chain mapped back to
+    the data domain and scored against the train set."""
+    from functools import partial
+
+    from fdtpu_torch.metrics import MarginalWasserstein, MetricCollection, SlicedWasserstein
+    from fdtpu_torch.ops import idft
+    from fdtpu_torch.sampling import DiffusionSampler, calibrate_tau_0
+
+    layers = model.config.num_layers
+    base = {k: v for k, v in CACHE_KWARGS.items() if k != "tau_0"}
+    torch.cuda.synchronize()
+    bda.launches = 0
+    t0 = time.perf_counter()
+    cal = calibrate_tau_0(model, num_samples=NUM_SAMPLES, num_diffusion_steps=NUM_STEPS,
+                          sample_batch_size=SAMPLE_BATCH, seed=3, cache_kwargs=base)
+    torch.cuda.synchronize()
+    cal_seconds = time.perf_counter() - t0
+    steps = NUM_STEPS * (NUM_SAMPLES // SAMPLE_BATCH)
+    forwards = 2 * steps + sum(round(steps * (1 - a.steps_skipped_ratio)) for a in cal.arms)
+    cal_launches = bda.launches
+    print("eval: calibration", json.dumps(dict(
+        tau_0=cal.tau_0, sw_noise_floor=cal.sw_noise_floor, seconds=cal_seconds,
+        launches_b1=cal_launches, cache_kwargs=cal.cache_kwargs,
+        arms=[dict(dataclasses.asdict(a), accepted=a.accepted) for a in cal.arms])), flush=True)
+    check(math.isfinite(cal.sw_noise_floor) and cal.sw_noise_floor > 0,
+          f"calibration: noise floor {cal.sw_noise_floor}")
+    check(len(cal.arms) >= 1 and all(math.isfinite(a.sw_vs_uncached) for a in cal.arms),
+          "calibration: an arm's SW is not finite")
+    check(cal_launches == layers * forwards,
+          f"calibration: {cal_launches} B1 launches for {forwards} full forwards x {layers}")
+
+    metrics = MetricCollection(
+        [partial(SlicedWasserstein, random_seed=METRICS_SEED, num_directions=SW_DIRECTIONS,
+                 save_all_distances=True),
+         partial(MarginalWasserstein, random_seed=METRICS_SEED, save_all_distances=True)],
+        original_samples=dm.X_train, include_baselines=True, include_spectral_density=True)
+    mean, std = dm.feature_mean_and_std
+    result = dict(calibration_tau_0=cal.tau_0, sw_noise_floor=cal.sw_noise_floor,
+                  calibration_seconds=cal_seconds, launches=cal_launches)
+    for name, use_cache in (("uncached", False), ("cached", True)):
+        sampler = DiffusionSampler(model, SAMPLE_BATCH, use_cache=use_cache,
+                                   cache_kwargs=CACHE_KWARGS if use_cache else None)
+        torch.cuda.synchronize()
+        bda.launches = 0
+        t0 = time.perf_counter()
+        x = sampler.sample(NUM_SAMPLES, NUM_STEPS,
+                           generator=torch.Generator(device="cuda").manual_seed(4))
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        stats = sampler.get_cache_stats()
+        full = stats["full_steps"] if use_cache else steps
+        check(bda.launches == layers * full,
+              f"eval {name}: {bda.launches} B1 launches for {full} full forwards x {layers}")
+        result["launches"] += bda.launches
+        # Back to the data domain (cli/sample.py:139-143).
+        data = x.cpu().numpy() * std + mean
+        series = idft(torch.from_numpy(data).float())
+        check(tuple(series.shape) == (NUM_SAMPLES, model.config.max_len, 1),
+              f"eval {name}: series shape {tuple(series.shape)}")
+        check(bool(torch.isfinite(series).all()), f"eval {name}: series not finite")
+        t0 = time.perf_counter()
+        scores = metrics(series)
+        metric_seconds = time.perf_counter() - t0
+        scalars = {k: v for k, v in scores.items() if not isinstance(v, list)}
+        check(all(math.isfinite(v) for v in scalars.values()),
+              f"eval {name}: a metric is not finite")
+        line = dict(samples_per_s=NUM_SAMPLES / seconds, seconds=seconds,
+                    metric_seconds=metric_seconds, steps_skipped_ratio=stats.get(
+                        "steps_skipped_ratio", 0.0), metrics=scalars)
+        print(f"eval: {name}", json.dumps(line), flush=True)
+        result[name] = line
+    return result
+
+
 def train_phase(torch, bda) -> dict:
     """The flagship's training path: one step's gradients, kernel path
-    against einsum path; 2 epochs of ``Trainer.fit``; train throughput."""
+    against einsum path; 2 epochs of ``Trainer.fit``; train throughput.
+    Returns the result, the trained model and the datamodule."""
     from fdtpu_torch.data import SyntheticDatamodule
     from fdtpu_torch.diffusion import VPScheduler, sde_loss
     from fdtpu_torch.models import ScoreModel, ScoreModelConfig, init_score_model
@@ -810,7 +1074,7 @@ def train_phase(torch, bda) -> dict:
                   grad_max_abs_err=grad_err, **counts)
     print("train", json.dumps(result), flush=True)
     device_breakdown(torch, "train-step", step, reps=5, top=10, no_grad=False)
-    return result
+    return result, model, dm
 
 
 def main() -> int:
@@ -828,6 +1092,7 @@ def main() -> int:
         print(f"chip_smoke: fdtpu_torch is not importable here ({exc})", file=sys.stderr)
         return 2
 
+    t_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     smi = nvidia_smi()
@@ -845,8 +1110,11 @@ def main() -> int:
     head_dim_sweep(torch, bda, mha)
     chains = slice_phase(torch, bda)
     levels = levels_phase(torch, bda, mha)
-    train = train_phase(torch, bda)
+    freq_chains = freq_options_phase(torch, bda, mha)
+    train, trained, dm = train_phase(torch, bda)
+    evaluation = eval_phase(torch, bda, trained, dm)
     level_chains = [c for c in levels.values() if isinstance(c, dict)]
+    level_chains += list(freq_chains.values())
 
     def kernel_record(name, source, replaces, launches, results):
         # The head case is the first float32 one; "cases" keeps every case's times.
@@ -868,7 +1136,7 @@ def main() -> int:
         kernel_record("blockdiag_mha", "fdtpu_torch/kernels/csrc/blockdiag_attention.cu",
                       "fdtpu/kernels/blockdiag_attention.py:221",
                       sum(c["launches"] for c in chains.values()) + train["launches"]
-                      + sum(c["launches_b1"] for c in level_chains),
+                      + sum(c["launches_b1"] for c in level_chains) + evaluation["launches"],
                       kernel_results),
         kernel_record("fused_mha", "fdtpu_torch/kernels/csrc/fused_attention.cu",
                       "fdtpu/kernels/attention.py:80",
@@ -884,6 +1152,7 @@ def main() -> int:
          "bound_ms": trainable["bound_ms"], "bound_by": trainable["bound_by"],
          "library_ms": trainable["library_ms"]},
     ]
+    print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,5 +1,5 @@
-"""E²-CRF cache at the score, token and KV levels (port of
-``fdtpu/cache/e2crf.py:67-784``, without FreqCa).
+"""E²-CRF cache at the score, token and KV levels, with FreqCa (port of
+``fdtpu/cache/e2crf.py:67-784``).
 
 * Score level: a skipped step rebuilds the score from an extrapolated noise
   prediction ε̂ rescaled by the current marginal std (score(t) = −ε̂ / std(t)).
@@ -12,6 +12,10 @@
 * KV level (:func:`macro_policy`, :func:`event_policy`,
   :func:`update_after_forward`): every step runs the network, in MODE_FULL,
   MODE_MIXED (fresh K/V for the masked tokens) or MODE_CACHED (stored K/V).
+* FreqCa: a ring of the last ``max_history`` high-frequency parts, with the
+  low-frequency part of the newest, for a Hermite extrapolation; of the CRF
+  at the KV level (``use_freqca``), of ε̂ at the score level
+  (``eps_predictor="freqca"``).
 
 The state is a dataclass of tensors on the sampling device.  Its float
 statistics (``err_acc``, ``drift_rate``, ``delta_tok``, ``eps_norm_ref`` …)
@@ -19,7 +23,8 @@ are float32 tensors, as in the JAX package, so every decision near τ₀ is
 taken on the same float32 values; the step counters and the ``cold`` flag are
 host values, and each policy reads the device at most once a step.  Fields a
 level does not use are zero-size placeholders with the JAX package's shapes.
-FreqCa (``use_freqca``) is still to port (ROADMAP.md).
+The ring's live count ``hist_len`` is a device tensor, so a FreqCa
+prediction reads nothing back from the device.
 """
 
 from __future__ import annotations
@@ -28,6 +33,8 @@ import dataclasses
 from typing import Any, Optional, Union
 
 import torch
+
+from fdtpu_torch.ops.fourier import frequency_decompose_fft, predict_hermite
 
 MODE_FULL = 0
 MODE_MIXED = 1
@@ -111,7 +118,7 @@ class PolicyParams:
 
 @dataclasses.dataclass(frozen=True)
 class CacheState:
-    """Cache state (the JAX pytree's fields without FreqCa's history ring)."""
+    """Cache state (the JAX pytree's fields)."""
 
     k: torch.Tensor  # (num_layers, B, T, H, Dh) K store, token and KV levels
     v: torch.Tensor  # (num_layers, B, T, H, Dh) V store
@@ -130,6 +137,13 @@ class CacheState:
     err_acc: torch.Tensor  # () accumulated predicted drift since the last refresh
     last_full_step: int
     cold: bool  # no valid ε̂ yet: the next step must run the network
+    # FreqCa's history ring, newest last: KV level (use_freqca) the CRF's
+    # parts, (max_history, L, T, D); score level (eps_predictor="freqca")
+    # ε̂'s, (max_history, B, T, C).  crf_low is the newest low-frequency part.
+    crf_low: torch.Tensor
+    crf_high_hist: torch.Tensor
+    crf_t_hist: torch.Tensor  # (max_history,) the entries' timesteps
+    hist_len: torch.Tensor  # () int32, live entries (the trailing ones)
     step: int  # global across batches
     recompute_count: int
     cache_hit_count: int
@@ -152,15 +166,10 @@ class CacheState:
 
 
 def check_level(cfg: E2CRFConfig) -> None:
-    """A level this package runs: score, token or KV, the latter without
-    FreqCa."""
+    """A level this package runs: score, token or KV (each with the JAX
+    package's options, FreqCa included)."""
     if cfg.level not in ("score", "token", "kv"):
         raise ValueError(f"level must be 'score', 'token' or 'kv', got {cfg.level!r}")
-    if cfg.level == "kv" and cfg.use_freqca:
-        raise NotImplementedError(
-            "level='kv' with use_freqca=True: FreqCa is not ported yet "
-            "(ROADMAP.md: FreqCa and FreSca)"
-        )
 
 
 def init_cache_state(
@@ -196,6 +205,15 @@ def init_cache_state(
     eps_shape = (batch, max_len, n_channels) if level != "kv" else (0,)
     tok_shape = (max_len,) if level == "token" else (0,)
     norm_shape = (max_len,) if level == "token" else ()
+    # The history ring: CRF features at the KV level, ε̂ at the score level.
+    if cfg.use_freqca and level == "kv":
+        hist_shape = (cfg.max_history, num_layers, max_len, d_model)
+    elif level == "score" and cfg.eps_predictor == "freqca":
+        hist_shape = (cfg.max_history, batch, max_len, n_channels)
+    else:
+        hist_shape = (0,)
+    has_hist = len(hist_shape) > 1
+    hist_dtype = kv_dtype if level == "kv" else torch.float32
     return CacheState(
         k=zeros(*kv_shape, dtype=kv_dtype),
         v=zeros(*kv_shape, dtype=kv_dtype),
@@ -212,6 +230,10 @@ def init_cache_state(
         err_acc=zeros(),
         last_full_step=0,
         cold=True,
+        crf_low=zeros(*(hist_shape[1:] if has_hist else (0,)), dtype=hist_dtype),
+        crf_high_hist=zeros(*hist_shape, dtype=hist_dtype),
+        crf_t_hist=zeros(cfg.max_history if has_hist else 0),
+        hist_len=zeros(dtype=torch.int32),
         step=0,
         recompute_count=0,
         cache_hit_count=0,
@@ -390,14 +412,32 @@ def update_after_forward(
     n_masked: int,
     kv_new: tuple[torch.Tensor, torch.Tensor],
     crf: torch.Tensor,
+    timestep: Optional[torch.Tensor] = None,
 ) -> CacheState:
     """Bookkeeping after a KV-level forward: the per-token CRF drift (L2 over
     d_model, mean over layers), the K/V store, the CRF and the counters;
-    ``n_masked`` is the number of tokens MODE_MIXED recomputed."""
+    ``n_masked`` is the number of tokens MODE_MIXED recomputed.  With
+    ``use_freqca``, every ``freq_decomp_interval`` global steps the CRF's
+    low and high parts at ``timestep`` go into the history ring (shifted
+    left, ``hist_len`` capped at ``max_history``)."""
     check_level(cfg)
     max_len = crf.shape[1]
     delta = torch.linalg.vector_norm((crf - state.crf_prev).to(state.delta_tok.dtype), dim=-1)
     n_recomputed = {MODE_FULL: max_len, MODE_MIXED: n_masked}.get(mode, 0)
+    freqca = {}
+    if cfg.use_freqca and state.step % cfg.freq_decomp_interval == 0:
+        crf_low, crf_high = frequency_decompose_fft(
+            crf.reshape(-1, *crf.shape[-2:]).float(), cfg.low_freq_ratio
+        )
+        hist = state.crf_high_hist
+        freqca = dict(
+            crf_low=crf_low.reshape(crf.shape).to(state.crf_low.dtype),
+            crf_high_hist=torch.cat([hist[1:], crf_high.reshape(1, *crf.shape).to(hist.dtype)]),
+            crf_t_hist=torch.cat(
+                [state.crf_t_hist[1:], timestep.reshape(1).to(state.crf_t_hist.dtype)]
+            ),
+            hist_len=torch.clamp(state.hist_len + 1, max=cfg.max_history),
+        )
     return state.replace(
         k=kv_new[0],
         v=kv_new[1],
@@ -409,6 +449,7 @@ def update_after_forward(
         full_steps=state.full_steps + (mode == MODE_FULL),
         mixed_steps=state.mixed_steps + (mode == MODE_MIXED),
         cached_steps=state.cached_steps + (mode == MODE_CACHED),
+        **freqca,
     )
 
 
@@ -416,6 +457,18 @@ def compute_event_intensity(cfg: E2CRFConfig, state: CacheState, crf: torch.Tens
     """Mean CRF-delta energy normalized by τ₀, capped at 1."""
     avg_energy = torch.mean(torch.linalg.vector_norm(crf - state.crf_prev, dim=-1))
     return torch.clamp(avg_energy / cfg.tau_0, max=1.0)
+
+
+def predict_crf_freqca(cfg: E2CRFConfig, state: CacheState, t_val: torch.Tensor) -> torch.Tensor:
+    """FreqCa prediction of the CRF at ``t_val``: the newest low-frequency
+    part plus the Hermite-extrapolated high-frequency part over the ring's
+    live entries; the previous CRF while fewer than two are live.  The JAX
+    sampler never calls it (quirk Q1)."""
+    k = state.crf_high_hist.shape[0]
+    valid = torch.arange(k, device=state.hist_len.device) >= k - state.hist_len
+    high = predict_hermite(state.crf_high_hist, state.crf_t_hist, t_val, cfg.hermite_order,
+                           valid=valid)
+    return torch.where(state.hist_len >= 2, state.crf_low + high, state.crf_prev)
 
 
 def cache_stats(state: CacheState) -> dict[str, Any]:

@@ -13,6 +13,15 @@ state (at most one device read a step):
   extrapolated) or SKIP;
 * KV level: the cached forward in the mode of the macro or event policy.
 
+The score level's skip predictor is a Taylor extrapolation of ε̂
+(``eps_order``) or FreqCa (``eps_predictor="freqca"``: the low-frequency part
+of the last refresh plus a Hermite extrapolation of the high-frequency parts
+of the last ``max_history`` refreshes); the KV level keeps FreqCa's CRF
+history with ``use_freqca``.  FreSca (``use_fresca``) rescales each step's
+score by frequency band, at every level, after the cache has taken what it
+keeps.  Neither reads the device: a skip step's one read stays the skip
+decision.
+
 The token and KV levels update the cache's K/V store in place (the JAX
 package returns a new one); a state handed to ``sample_chain`` is updated.
 
@@ -62,6 +71,8 @@ from fdtpu_torch.models.score_models import (
     score_apply_cached,
     score_apply_topk,
 )
+from fdtpu_torch.ops.fourier import frequency_decompose_fft, predict_hermite
+from fdtpu_torch.ops.fresca import apply_fresca_to_score
 from fdtpu_torch.utils.device import module_device
 
 
@@ -73,8 +84,6 @@ def _check_cache_config(cfg: E2CRFConfig) -> None:
             f"eps_predictor='freqca' is a score-level predictor (got level={cfg.level!r})"
         )
     check_level(cfg)
-    if cfg.eps_predictor == "freqca":
-        raise NotImplementedError("eps_predictor='freqca' is not ported yet (ROADMAP.md: FreqCa)")
 
 
 def _prep_cache_for_new_batch(state: CacheState) -> CacheState:
@@ -83,10 +92,27 @@ def _prep_cache_for_new_batch(state: CacheState) -> CacheState:
     return state.replace(cold=True, drift_rate=torch.zeros_like(state.drift_rate))
 
 
-def eps_predict(c: CacheState, steps_ahead: float, order: int) -> torch.Tensor:
-    """Extrapolate ε̂ ``steps_ahead`` past the last full computation: order 0
-    frozen reuse, 1 linear from the last two full computations, 2 quadratic
-    (Newton form) from the last three."""
+def eps_predict(
+    c: CacheState, steps_ahead: float, cfg: E2CRFConfig, t: torch.Tensor
+) -> torch.Tensor:
+    """Extrapolate ε̂ ``steps_ahead`` past the last full computation, to the
+    step at time ``t``.
+
+    ``eps_predictor="taylor"``: order (``eps_order``) 0 frozen reuse, 1 linear
+    from the last two full computations, 2 quadratic (Newton form) from the
+    last three.  ``"freqca"``: the last refresh's low-frequency part plus the
+    Hermite-extrapolated high-frequency part over the refresh ring, at the
+    true ``t``; the fit is extrapolated only once it is determined (more live
+    entries than ``hermite_order``), and below two live entries ε̂ is reused.
+    """
+    if cfg.eps_predictor == "freqca":
+        k_hist = c.crf_high_hist.shape[0]
+        valid = torch.arange(k_hist, device=c.hist_len.device) >= k_hist - c.hist_len
+        high = predict_hermite(c.crf_high_hist, c.crf_t_hist, t, order=cfg.hermite_order,
+                               valid=valid, clip_target=c.hist_len <= cfg.hermite_order)
+        pred = c.crf_low.to(c.eps_hat.dtype) + high.to(c.eps_hat.dtype)
+        return torch.where(c.hist_len >= 2, pred, c.eps_hat)
+    order = cfg.eps_order
     if order == 0:
         return c.eps_hat
     slope1 = torch.where(
@@ -105,9 +131,9 @@ def eps_predict(c: CacheState, steps_ahead: float, order: int) -> torch.Tensor:
     return pred
 
 
-def _refresh(network, c: CacheState, pp: PolicyParams, x, t_batch, std, order: int):
+def _refresh(network, c: CacheState, cfg: E2CRFConfig, pp: PolicyParams, x, t, t_batch, std):
     """Full step: run the network, measure the drift against what a skip
-    would have predicted, and roll the ε̂ history."""
+    would have predicted, and roll the ε̂ history (and FreqCa's ring)."""
     score = network(x, t_batch)
     eps_new = -std[..., None] * score
     denom = torch.linalg.vector_norm(eps_new) + 1e-8
@@ -119,7 +145,7 @@ def _refresh(network, c: CacheState, pp: PolicyParams, x, t_batch, std, order: i
         rel = drift_rate = zero
     else:
         # The denominator is floored at 10% of the trajectory scale.
-        eps_pred = eps_predict(c, float(steps_since), order)
+        eps_pred = eps_predict(c, float(steps_since), cfg, t)
         rel = guard_relative_error(torch.linalg.vector_norm(eps_new - eps_pred), denom, norm_ref)
         drift_rate = rel / steps_since
     measured = (not c.cold) and steps_since > 1
@@ -128,6 +154,19 @@ def _refresh(network, c: CacheState, pp: PolicyParams, x, t_batch, std, order: i
     # against what the budget predicted (err_acc).
     c = record_guard_measurement(c, measured, rel, c.err_acc, pp.guard_abs_tol)
     cold = c.cold
+    freqca = {}
+    if cfg.eps_predictor == "freqca":
+        eps_low, eps_high = frequency_decompose_fft(eps_new, cfg.low_freq_ratio)
+        hist = c.crf_high_hist
+        freqca = dict(
+            crf_low=eps_low.to(c.crf_low.dtype),
+            crf_high_hist=torch.cat([hist[1:], eps_high[None].to(hist.dtype)]),
+            crf_t_hist=torch.cat([c.crf_t_hist[1:], t.reshape(1).to(c.crf_t_hist.dtype)]),
+            # A cold refresh starts a new trajectory: the ring's older
+            # entries belong to the previous one.
+            hist_len=(torch.ones_like(c.hist_len) if cold
+                      else torch.clamp(c.hist_len + 1, max=hist.shape[0])),
+        )
     c = c.replace(
         eps_norm_ref=norm_ref,
         eps_norm_cold=denom.to(c.eps_norm_cold.dtype) if cold else c.eps_norm_cold,
@@ -142,13 +181,14 @@ def _refresh(network, c: CacheState, pp: PolicyParams, x, t_batch, std, order: i
         last_full_step=c.step,
         full_steps=c.full_steps + 1,
         recompute_count=c.recompute_count + x.shape[1],
+        **freqca,
     )
     return score, c, trace
 
 
-def _skip(c: CacheState, std, max_len: int, order: int):
+def _skip(c: CacheState, cfg: E2CRFConfig, t, std, max_len: int):
     """Skipped step: rebuild the score from the predicted noise."""
-    eps = eps_predict(c, float(c.step - c.last_full_step + 1), order)
+    eps = eps_predict(c, float(c.step - c.last_full_step + 1), cfg, t)
     score = -eps / std[..., None]
     c = c.replace(
         err_acc=c.err_acc + c.drift_rate,
@@ -291,7 +331,7 @@ def _token_step(network, c: CacheState, cfg: E2CRFConfig, pp: PolicyParams, x, t
     return -eps_pred / stdc, c
 
 
-def _kv_step(network, c: CacheState, cfg: E2CRFConfig, pp: PolicyParams, x, t_batch, probe):
+def _kv_step(network, c: CacheState, cfg: E2CRFConfig, pp: PolicyParams, x, t, t_batch, probe):
     """One step of the KV level (``kv_level_body``): the policy's mode, the
     cached forward in it, the bookkeeping."""
     if cfg.policy == "macro":
@@ -300,7 +340,7 @@ def _kv_step(network, c: CacheState, cfg: E2CRFConfig, pp: PolicyParams, x, t_ba
         probe_u = probe() if cfg.resolved_random_probe_ratio > 0.0 else None
         mode, mask, n_masked = event_policy(cfg, pp, c, x, probe_u)
     score, kv, crf = score_apply_cached(network, x, t_batch, (c.k, c.v), mask, mode)
-    return score, update_after_forward(cfg, c, mode, n_masked, kv, crf)
+    return score, update_after_forward(cfg, c, mode, n_masked, kv, crf, t)
 
 
 @torch.no_grad()
@@ -315,6 +355,11 @@ def sample_chain(
     step_noise: Optional[torch.Tensor] = None,
     probe_noise: Optional[torch.Tensor] = None,
     generator: Optional[torch.Generator] = None,
+    use_fresca: bool = False,
+    fresca_low_scale: float = 1.0,
+    fresca_high_scale: float = 1.5,
+    fresca_cutoff_ratio: float = 0.5,
+    fresca_cutoff_strategy: str = "energy",
     guard_trace: bool = False,
 ):
     """Run the reverse diffusion from the prior sample ``x0``.
@@ -323,7 +368,9 @@ def sample_chain(
     also per-step telemetry ``(measured, rel, eps_norm, err_acc,
     steps_since)``, each ``(num_steps,)`` and zero on skipped steps, laid out
     as the JAX package's ``guard_trace``.  A token- or KV-level
-    ``cache_state`` passed in has its K/V store updated in place.
+    ``cache_state`` passed in has its K/V store updated in place.  With
+    ``use_fresca`` each step's score goes through ``apply_fresca_to_score``
+    (the ``fresca_*`` arguments, the JAX defaults) before the update of x.
     """
     if cache_cfg is not None:
         _check_cache_config(cache_cfg)
@@ -338,16 +385,23 @@ def sample_chain(
             return step_noise[i].to(device=x.device, dtype=x.dtype)
         return torch.randn(x.shape, generator=generator, device=x.device, dtype=x.dtype)
 
+    def fresca(score: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+        if not use_fresca:
+            return score
+        return apply_fresca_to_score(
+            score, fresca_low_scale, fresca_high_scale, fresca_cutoff_ratio,
+            fresca_cutoff_strategy, timestep=t, num_steps=num_steps,
+        )
+
     x = x0
     if cache_cfg is None:
         for i in range(num_steps):
             t = ts[i]
-            score = network(x, t.expand(batch))
+            score = fresca(network(x, t.expand(batch)), t)
             x = scheduler.step(score, t, x, noise(i, x), step_size)
         return x, None
 
     pp = cache_cfg.policy_params(x0.device)
-    order = cache_cfg.eps_order
     level = cache_cfg.level
     max_len = x0.shape[1]
     cache = cache_state
@@ -372,20 +426,20 @@ def sample_chain(
             return torch.rand((max_len,), generator=generator, device=x.device)
 
         if level == "kv":
-            score, cache = _kv_step(network, cache, cache_cfg, pp, x, t_batch, probe)
+            score, cache = _kv_step(network, cache, cache_cfg, pp, x, t, t_batch, probe)
         else:
             _, std = scheduler.marginal_prob(x, t_batch)
             if level == "token":
                 score, cache = _token_step(network, cache, cache_cfg, pp, x, t_batch, std,
                                            low_bonus, probe)
             elif score_skip_decision(cache_cfg, pp, cache):
-                score, cache, trace = _refresh(network, cache, pp, x, t_batch, std, order)
+                score, cache, trace = _refresh(network, cache, cache_cfg, pp, x, t, t_batch, std)
             else:
-                score, cache = _skip(cache, std, max_len, order)
+                score, cache = _skip(cache, cache_cfg, t, std, max_len)
                 trace = skipped
         if guard_trace:
             traces.append(trace)
-        x = scheduler.step(score, t, x, noise(i, x), step_size)
+        x = scheduler.step(fresca(score, t), t, x, noise(i, x), step_size)
         cache = cache.replace(step=cache.step + 1)
     if guard_trace:
         columns = tuple(
@@ -400,8 +454,11 @@ def sample_chain(
 class DiffusionSampler:
     """User-facing sampler (the JAX package's ``DiffusionSampler``).
 
-    ``cache_kwargs`` takes the fields of :class:`E2CRFConfig`.  Not ported
-    yet (ROADMAP.md): FreqCa, FreSca, ``mesh`` and ``batches_per_call > 1``.
+    ``cache_kwargs`` takes the fields of :class:`E2CRFConfig`, FreqCa's
+    included (``eps_predictor="freqca"`` at the score level, ``use_freqca``
+    at the KV level); ``use_fresca`` and the ``fresca_*`` arguments scale each
+    step's score by frequency band, with the JAX package's defaults.  Not
+    ported yet (ROADMAP.md): ``mesh`` and ``batches_per_call > 1``.
     """
 
     def __init__(
@@ -411,11 +468,13 @@ class DiffusionSampler:
         use_cache: bool = False,
         cache_kwargs: Optional[dict] = None,
         use_fresca: bool = False,
+        fresca_low_scale: float = 1.0,
+        fresca_high_scale: float = 1.5,
+        fresca_cutoff_ratio: float = 0.5,
+        fresca_cutoff_strategy: str = "energy",
         mesh: Optional[Any] = None,
         batches_per_call: int = 1,
     ) -> None:
-        if use_fresca:
-            raise NotImplementedError("FreSca is not ported yet (ROADMAP.md: FreqCa and FreSca)")
         if mesh is not None:
             raise NotImplementedError("mesh is not ported yet (ROADMAP.md: distribution)")
         if batches_per_call > 1:
@@ -435,6 +494,11 @@ class DiffusionSampler:
             _check_cache_config(cfg)
             self._check_level_settings(cfg)
         self.last_cache_state: Optional[CacheState] = None
+        self.use_fresca = use_fresca
+        self.fresca_low_scale = fresca_low_scale
+        self.fresca_high_scale = fresca_high_scale
+        self.fresca_cutoff_ratio = fresca_cutoff_ratio
+        self.fresca_cutoff_strategy = fresca_cutoff_strategy
 
     def _check_level_settings(self, cfg: E2CRFConfig) -> None:
         """The JAX sampler's checks of the token and KV settings: a token
@@ -539,6 +603,11 @@ class DiffusionSampler:
                 step_noise=None if step_noise is None else step_noise[:, rows],
                 probe_noise=None if probe_noise is None else probe_noise[batch_idx],
                 generator=generator,
+                use_fresca=self.use_fresca,
+                fresca_low_scale=self.fresca_low_scale,
+                fresca_high_scale=self.fresca_high_scale,
+                fresca_cutoff_ratio=self.fresca_cutoff_ratio,
+                fresca_cutoff_strategy=self.fresca_cutoff_strategy,
             )
             all_samples.append(x)
 

@@ -59,16 +59,28 @@ def test_init_cache_state_matches_jax_score_fields():
         np.testing.assert_array_equal(pv, jv, err_msg=f.name)
 
 
-def test_unported_levels_raise_not_implemented():
-    """FreqCa at the KV level is still to port; the token and KV levels are
-    ported (their state is held against the JAX package in
-    tests/test_torch_cache_levels.py)."""
-    sizes = dict(num_layers=2, n_head=2, head_dim=6, d_model=12)
-    with pytest.raises(NotImplementedError, match="FreqCa.*ROADMAP"):
-        pe.init_cache_state(pe.E2CRFConfig(level="kv", use_freqca=True), 3, 5, 1, "cpu", **sizes)
-    for level in ("token", "kv"):
-        state = pe.init_cache_state(pe.E2CRFConfig(level=level), 3, 5, 1, "cpu", **sizes)
-        assert state.k.shape == (2, 3, 5, 2, 6)
+@pytest.mark.parametrize("cfg", [dict(level="score", eps_predictor="freqca", max_history=4),
+                                 dict(level="kv", use_freqca=True, max_history=3),
+                                 dict(level="kv", use_freqca=True, kv_dtype="bfloat16"),
+                                 dict(level="token", use_freqca=True)],
+                         ids=["score-freqca", "kv-freqca", "kv-freqca-bf16", "token"])
+def test_freqca_ring_fields_match_jax(cfg):
+    """FreqCa's history ring: the score level
+    keeps ε̂ parts (max_history, B, T, C), the KV level CRF parts
+    (max_history, L, T, D) in the store's dtype, the token level none."""
+    cfg = dict(cfg)
+    bf16 = cfg.pop("kv_dtype", None) == "bfloat16"
+    j = je.init_cache_state(je.E2CRFConfig(**cfg), 2, 3, 2, 5, 6, 12, 1,
+                            kv_dtype=jnp.bfloat16 if bf16 else None)
+    p = pe.init_cache_state(pe.E2CRFConfig(**cfg), 3, 5, 1, "cpu", num_layers=2, n_head=2,
+                            head_dim=6, d_model=12,
+                            kv_dtype=torch.bfloat16 if bf16 else torch.float32)
+    for name in ("crf_low", "crf_high_hist", "crf_t_hist", "hist_len"):
+        jv, pv = np.asarray(getattr(j, name)), getattr(p, name)
+        assert tuple(pv.shape) == jv.shape, name
+        assert str(pv.dtype).split(".")[-1] == str(jv.dtype), name
+        np.testing.assert_array_equal(pv.float().numpy(), jv.astype(np.float32), err_msg=name)
+    assert p.hist_len.ndim == 0 and p.hist_len.dtype == torch.int32
 
 
 DECISION_CASES = [

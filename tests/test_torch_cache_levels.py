@@ -173,9 +173,103 @@ def test_update_after_forward_matches_jax(mode):
     for f in ("k", "v", "crf_prev"):
         np.testing.assert_array_equal(getattr(pn, f).numpy(), np.asarray(getattr(jn, f)))
     np.testing.assert_allclose(pn.delta_tok.numpy(), np.asarray(jn.delta_tok), rtol=1e-6)
-    with pytest.raises(NotImplementedError, match="FreqCa"):
-        pe.update_after_forward(pe.E2CRFConfig(level="kv", use_freqca=True), ps, mode, 0,
-                                (torch.from_numpy(k), torch.from_numpy(v)), torch.from_numpy(crf))
+
+
+def _freqca_states(cfg, **fields):
+    """JAX and port KV-level states with FreqCa's ring, the ring filled
+    from ``fields``."""
+    j = je.init_cache_state(je.E2CRFConfig(**cfg), L, B, H, T, DH, D, C)
+    p = pe.init_cache_state(pe.E2CRFConfig(**cfg), B, T, C, "cpu", num_layers=L, n_head=H,
+                            head_dim=DH, d_model=D)
+    jf, pf = {}, {}
+    for name, value in fields.items():
+        if name in HOST:
+            jf[name], pf[name] = jnp.asarray(value, jnp.int32), value
+        else:
+            value = np.asarray(value, np.asarray(getattr(j, name)).dtype)
+            jf[name], pf[name] = jnp.asarray(value), torch.from_numpy(value.copy())
+    return j.replace(**jf), p.replace(**pf)
+
+
+@pytest.mark.parametrize("step", [0, 3, 4, 8])
+@pytest.mark.parametrize("hist_len", [0, 2, 3])
+def test_update_after_forward_freqca_ring_matches_jax(step, hist_len):
+    """The ring takes the CRF's parts at steps divisible by the interval,
+    shifted left, its live count capped at max_history."""
+    rng = np.random.default_rng(13)
+    cfg = dict(level="kv", use_freqca=True, max_history=3, freq_decomp_interval=4)
+    ring = rng.standard_normal((3, L, T, D)).astype(np.float32)
+    js, ps = _freqca_states(cfg, step=step, hist_len=hist_len, crf_high_hist=ring,
+                            crf_t_hist=np.float32([0.9, 0.8, 0.7]),
+                            crf_low=rng.standard_normal((L, T, D)))
+    crf = rng.standard_normal((L, T, D)).astype(np.float32)
+    k = rng.standard_normal((L, B, T, H, DH)).astype(np.float32)
+    t = np.float32(0.6)
+    jn = je.update_after_forward(je.E2CRFConfig(**cfg), js, jnp.int32(pe.MODE_FULL),
+                                 jnp.ones((T,), bool), (jnp.asarray(k), jnp.asarray(k)),
+                                 jnp.asarray(crf), jnp.asarray(t))
+    pn = pe.update_after_forward(pe.E2CRFConfig(**cfg), ps, pe.MODE_FULL, T,
+                                 (torch.from_numpy(k), torch.from_numpy(k)),
+                                 torch.from_numpy(crf), torch.tensor(t))
+    assert pn.hist_len.dtype == torch.int32 and int(pn.hist_len) == int(jn.hist_len)
+    np.testing.assert_array_equal(pn.crf_t_hist.numpy(), np.asarray(jn.crf_t_hist))
+    for name in ("crf_low", "crf_high_hist"):
+        np.testing.assert_allclose(getattr(pn, name).numpy(), np.asarray(getattr(jn, name)),
+                                   atol=1e-5, rtol=1e-4, err_msg=name)
+    if step % 4:
+        np.testing.assert_array_equal(pn.crf_high_hist.numpy(), ring)
+
+
+def _freqca_history(cfg, ts, value):
+    """Both packages' KV states after FULL forwards at timesteps ``ts`` with
+    the CRF ``value(t)`` (tests/test_cache_extras.py's protocol)."""
+    js = je.init_cache_state(je.E2CRFConfig(**cfg), L, B, H, T, DH, D, C)
+    ps = pe.init_cache_state(pe.E2CRFConfig(**cfg), B, T, C, "cpu", num_layers=L, n_head=H,
+                             head_dim=DH, d_model=D)
+    kv = np.zeros((L, B, T, H, DH), np.float32)
+    for t in ts:
+        crf = value(t)
+        js = je.update_after_forward(je.E2CRFConfig(**cfg), js, jnp.int32(pe.MODE_FULL),
+                                     jnp.ones((T,), bool), (jnp.asarray(kv), jnp.asarray(kv)),
+                                     jnp.asarray(crf), jnp.float32(t))
+        ps = pe.update_after_forward(pe.E2CRFConfig(**cfg), ps, pe.MODE_FULL, T,
+                                     (torch.from_numpy(kv), torch.from_numpy(kv)),
+                                     torch.from_numpy(crf), torch.tensor(t, dtype=torch.float32))
+        js, ps = js.replace(step=js.step + 1), ps.replace(step=ps.step + 1)
+    return js, ps
+
+
+@pytest.mark.parametrize("target", [0.75, 0.55, 0.95])
+@pytest.mark.parametrize("signal", ["linear", "wave"])
+def test_predict_crf_freqca_matches_jax(signal, target):
+    """tests/test_cache_extras.py's case (CRF(t) = t everywhere, four
+    refreshes, prediction between them) and a CRF whose high band moves."""
+    cfg = dict(level="kv", use_freqca=True, max_history=4, freq_decomp_interval=1)
+    rng = np.random.default_rng(14)
+    shape = rng.standard_normal((L, T, D)).astype(np.float32)
+
+    def value(t):
+        if signal == "linear":
+            return np.full((L, T, D), t, np.float32)
+        return (np.sin(7.0 * t) * shape + t).astype(np.float32)
+
+    js, ps = _freqca_history(cfg, [1.0, 0.9, 0.8, 0.7], value)
+    assert int(ps.hist_len) == int(js.hist_len) == 4
+    got = pe.predict_crf_freqca(pe.E2CRFConfig(**cfg), ps, torch.tensor(target))
+    want = je.predict_crf_freqca(je.E2CRFConfig(**cfg), js, jnp.float32(target))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5, rtol=1e-4)
+    if signal == "linear" and target == 0.75:
+        np.testing.assert_allclose(got.numpy(), 0.75, atol=0.08)
+
+
+def test_predict_crf_freqca_falls_back_below_two_entries_like_jax():
+    cfg = dict(level="kv", use_freqca=True, max_history=4, freq_decomp_interval=1)
+    crf = np.full((L, T, D), 0.5, np.float32)
+    js, ps = _freqca_states(cfg, crf_prev=crf, hist_len=1)
+    got = pe.predict_crf_freqca(pe.E2CRFConfig(**cfg), ps, torch.tensor(0.4))
+    want = je.predict_crf_freqca(je.E2CRFConfig(**cfg), js, jnp.float32(0.4))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    np.testing.assert_allclose(got.numpy(), 0.5, atol=1e-5)
 
 
 @pytest.mark.parametrize("tau_0", [0.1, 100.0])

@@ -359,3 +359,80 @@ def test_cached_chain_on_the_card_counts_its_kernels(cuda, cache_kwargs):
     for key in ("full_steps", "mixed_steps", "cached_steps", "recompute_count"):
         assert s[key] == stats["cpu"][key], key
     torch.testing.assert_close(samples["cuda"], samples["cpu"], rtol=0, atol=1e-4)
+
+
+# ------------------------------------------------ FreSca and FreqCa on the card
+@pytest.mark.parametrize("strategy", ["energy", "spatial"])
+@pytest.mark.parametrize("shape", [(128, 187, 1), (4, 17, 2), (2, 12, 10, 3)])
+def test_fresca_on_the_card_matches_the_cpu(cuda, shape, strategy):
+    """FreSca through cuFFT against the CPU's FFT: atol 1e-5 (float32
+    transforms that sum in other orders) and the same energy cutoff bin."""
+    from fdtpu_torch.ops import fresca
+
+    x = torch.randn(shape, generator=cuda, device="cuda")
+    kw = dict(low_scale=0.9, high_scale=1.5, cutoff_ratio=0.5, cutoff_strategy=strategy)
+    got = fresca.frequency_scale(x, **kw)
+    torch.testing.assert_close(got.cpu(), fresca.frequency_scale(x.cpu(), **kw), rtol=0,
+                               atol=1e-5)
+    t = torch.full((), 0.37, device="cuda")
+    got = fresca.apply_fresca_to_score(x, 1.0, 1.5, 0.5, strategy, timestep=t, num_steps=50)
+    want = fresca.apply_fresca_to_score(x.cpu(), 1.0, 1.5, 0.5, strategy, timestep=t.cpu(),
+                                        num_steps=50)
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-5)
+    if len(shape) == 3:
+        spec = torch.abs(torch.fft.rfft(x, dim=1, norm="ortho")).mean(dim=(0, 2))
+        low, _ = fresca.create_frequency_masks(spec.shape[0], 0.5, "energy", spec)
+        low_cpu, _ = fresca.create_frequency_masks(spec.shape[0], 0.5, "energy", spec.cpu())
+        assert int(low.sum()) == int(low_cpu.sum())
+
+
+@pytest.mark.parametrize("live, clip", [(10, False), (10, True), (3, True), (1, True)])
+def test_predict_hermite_on_the_card_matches_the_cpu(cuda, live, clip):
+    from fdtpu_torch.ops import predict_hermite
+
+    k = 10
+    t = torch.linspace(0.9, 0.3, k, device="cuda")
+    hist = torch.randn((k, 128, 187, 1), generator=cuda, device="cuda") * 0.1
+    hist = hist + torch.sin(5 * t)[:, None, None, None]
+    valid = torch.arange(k, device="cuda") >= k - live
+    clip_t = torch.tensor(clip, device="cuda")
+    target = torch.full((), 0.25, device="cuda")
+    got = predict_hermite(hist, t, target, order=3, valid=valid, clip_target=clip_t)
+    want = predict_hermite(hist.cpu(), t.cpu(), target.cpu(), order=3, valid=valid.cpu(),
+                           clip_target=clip_t.cpu())
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-5)
+
+
+def test_freqca_skip_and_fresca_read_nothing_back_from_the_card(cuda):
+    """A FreqCa skip step's prediction and a FreSca call queue work on the
+    card without one host synchronization (the skip decision, made before,
+    is the step's one read)."""
+    from fdtpu_torch.cache import E2CRFConfig, init_cache_state
+    from fdtpu_torch.ops.fresca import apply_fresca_to_score
+    from fdtpu_torch.sampling import sampler as psampler
+
+    b, t_len, k = 128, 187, 10
+    cfg = E2CRFConfig(level="score", eps_predictor="freqca", max_history=k, hermite_order=3)
+    state = init_cache_state(cfg, b, t_len, 1, "cuda").replace(
+        cold=False, step=40, last_full_step=37,
+        hist_len=torch.full((), 6, dtype=torch.int32, device="cuda"),
+        crf_t_hist=torch.linspace(0.99, 0.9, k, device="cuda"),
+        crf_high_hist=torch.randn((k, b, t_len, 1), generator=cuda, device="cuda"),
+        crf_low=torch.randn((b, t_len, 1), generator=cuda, device="cuda"),
+        eps_hat=torch.randn((b, t_len, 1), generator=cuda, device="cuda"))
+    t = torch.full((), 0.88, device="cuda")
+    std = torch.rand((b, t_len), generator=cuda, device="cuda") + 0.5
+    score = torch.randn((b, t_len, 1), generator=cuda, device="cuda")
+    # Warm up: cuFFT plans, cuSOLVER handles and the allocator's first blocks.
+    psampler._skip(state, cfg, t, std, t_len)
+    apply_fresca_to_score(score, 1.0, 1.5, 0.5, "energy", timestep=t, num_steps=1000)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        skipped, new = psampler._skip(state, cfg, t, std, t_len)
+        scaled = apply_fresca_to_score(score, 1.0, 1.5, 0.5, "energy", timestep=t,
+                                       num_steps=1000)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert new.cached_steps == state.cached_steps + 1
+    assert bool(torch.isfinite(skipped).all()) and bool(torch.isfinite(scaled).all())

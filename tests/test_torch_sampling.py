@@ -54,6 +54,10 @@ def chain_noise(key, num_steps, shape):
     return torch.from_numpy(np.stack(zs))
 
 
+def _rand_x(seed):
+    return np.random.default_rng(seed).standard_normal((B, T, C)).astype(np.float32)
+
+
 def _x0(js, seed=5):
     return np.array(js.prior_sampling(jax.random.PRNGKey(seed), (B, T, C)))
 
@@ -109,6 +113,79 @@ def test_score_level_chain_matches_jax_step_by_step(models, eps_order, tau_0, au
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4)
 
 
+def _rings_agree(pstate, jstate):
+    """FreqCa's ring fields at the end of a chain.  The ring's timesteps may
+    differ by one float32 ulp: XLA's linspace on the CPU contracts 1 − s into
+    a fused multiply-add (ROADMAP.md §C)."""
+    assert int(pstate.hist_len) == int(jstate.hist_len)
+    np.testing.assert_allclose(pstate.crf_t_hist.numpy(), np.asarray(jstate.crf_t_hist),
+                               rtol=0, atol=6e-8)
+    for f in ("crf_low", "crf_high_hist"):
+        np.testing.assert_allclose(getattr(pstate, f).numpy(), np.asarray(getattr(jstate, f)),
+                                   atol=5e-5, err_msg=f)
+
+
+@pytest.mark.parametrize("hermite_order", [2, 3])
+def test_freqca_score_chain_matches_jax_step_by_step(models, hermite_order):
+    """The score level's FreqCa predictor: the same refresh schedule at every
+    step, the same ring, samples at atol 5e-5.  The ring (4 entries) fills,
+    so the fit is extrapolated unclipped once it is determined."""
+    jcfg, variables, js, net, ps = models
+    x0, key, n = _x0(js, seed=6), jax.random.PRNGKey(8), 40
+    kw = dict(level="score", R=6, tau_0=0.6, eps_predictor="freqca", max_history=4,
+              hermite_order=hermite_order, guard="off")
+    jcc = je.E2CRFConfig(**kw)
+    state = je.init_cache_state(jcc, 2, B, 2, T, 6, 12, C)
+    want, jstate, jtrace = jsampler.sample_chain(
+        variables, js, jnp.asarray(x0), key, state, model_cfg=jcfg, cache_cfg=jcc,
+        num_steps=n, guard_trace=True,
+    )
+    got, pstate, ptrace = psampler.sample_chain(
+        net, ps, torch.from_numpy(x0), cache_cfg=pe.E2CRFConfig(**kw), num_steps=n,
+        step_noise=chain_noise(key, n, (B, T, C)), guard_trace=True,
+    )
+    full_j, full_p = np.asarray(jtrace[4]) > 0, ptrace[4].numpy() > 0
+    diverged = np.nonzero(full_j != full_p)[0]
+    assert diverged.size == 0, f"schedules diverge first at step {diverged[:1]}"
+    assert full_j.sum() > hermite_order + 1 and (~full_j).sum() >= 3
+    # The realized errors at the refreshes after the cold one.
+    np.testing.assert_allclose(ptrace[1].numpy()[1:], np.asarray(jtrace[1])[1:], rtol=1e-4,
+                               atol=1e-6)
+    _rings_agree(pstate, jstate)
+    assert int(pstate.hist_len) == 4
+    _stats_agree(pe.cache_stats(pstate), je.cache_stats(jstate))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=5e-5)
+
+
+@pytest.mark.parametrize("kw", [
+    None,
+    dict(level="score", R=8, tau_0=1.35, eps_order=1),
+    dict(level="score", R=6, tau_0=0.6, eps_predictor="freqca", max_history=4, hermite_order=2),
+], ids=["uncached", "score", "score-freqca"])
+@pytest.mark.parametrize("strategy", ["energy", "spatial"])
+def test_fresca_chain_matches_jax(models, kw, strategy):
+    """FreSca after the score (uncached) or after the refresh or skip branch
+    (score level): samples at atol 5e-5, the same schedule."""
+    jcfg, variables, js, net, ps = models
+    x0, key, n = _x0(js, seed=9), jax.random.PRNGKey(10), 30
+    fresca = dict(use_fresca=True, fresca_low_scale=0.9, fresca_high_scale=1.5,
+                  fresca_cutoff_ratio=0.5, fresca_cutoff_strategy=strategy)
+    jcc = pcc = state = None
+    if kw is not None:
+        kw = dict(kw, guard="off")
+        jcc, pcc = je.E2CRFConfig(**kw), pe.E2CRFConfig(**kw)
+        state = je.init_cache_state(jcc, 2, B, 2, T, 6, 12, C)
+    want, jstate = jsampler.sample_chain(variables, js, jnp.asarray(x0), key, state,
+                                         model_cfg=jcfg, cache_cfg=jcc, num_steps=n, **fresca)
+    got, pstate = psampler.sample_chain(net, ps, torch.from_numpy(x0), cache_cfg=pcc,
+                                        num_steps=n, step_noise=chain_noise(key, n, (B, T, C)),
+                                        **fresca)
+    if kw is not None:
+        _stats_agree(pe.cache_stats(pstate), je.cache_stats(jstate))
+        assert pstate.full_steps >= 2 and pstate.cached_steps >= 2
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=5e-5)
+
+
 def _jax_sampler_noise(seed, num_batches, n):
     """Prior and step draws of the JAX DiffusionSampler's host loop."""
     key = jax.random.PRNGKey(seed)
@@ -141,6 +218,49 @@ def test_two_batch_sampler_matches_jax_with_cold_marking(models, reset):
     _stats_agree(got_stats, want_stats)
     assert got_stats["current_step"] == (n if reset else 2 * n)
     assert got_stats["full_steps"] >= 3 and got_stats["cached_steps"] >= 3
+
+
+def test_freqca_two_batch_sampler_restarts_the_ring_on_the_cold_refresh(models):
+    """Quirk Q5 with the FreqCa predictor: the second trajectory's cold
+    refresh restarts the ring's live count at 1 (its older entries belong to
+    the first trajectory); samples, statistics and ring as the JAX sampler's,
+    with FreSca on."""
+    jcfg, variables, js, net, ps = models
+    n, seed = 24, 12
+    kw = dict(level="score", R=6, tau_0=0.6, eps_predictor="freqca", max_history=4,
+              hermite_order=2, guard="off")
+    fresca = dict(use_fresca=True, fresca_high_scale=1.3)
+    jmodel = jsm.ScoreModel(config=jcfg, variables=variables, scheduler=js)
+    jsamp = jsampler.DiffusionSampler(jmodel, B, use_cache=True, cache_kwargs=kw, **fresca)
+    want = jsamp.sample(2 * B, n, key=jax.random.PRNGKey(seed))
+    pmodel = psm.ScoreModel(config=net.config, network=net, scheduler=ps)
+    psamp = psampler.DiffusionSampler(pmodel, B, use_cache=True, cache_kwargs=kw, **fresca)
+    prior, steps = _jax_sampler_noise(seed, 2, n)
+    got = psamp.sample(2 * B, n, prior_noise=prior, step_noise=steps)
+    np.testing.assert_allclose(got.numpy(), want, atol=5e-5)
+    _stats_agree(psamp.get_cache_stats(), jsamp.get_cache_stats())
+    _rings_agree(psamp.last_cache_state, jsamp.last_cache_state)
+
+
+@pytest.mark.parametrize("cold, hist_len, want", [(True, 3, 1), (False, 2, 3), (False, 4, 4)])
+def test_freqca_refresh_shifts_the_ring_and_counts_its_live_entries(models, cold, hist_len,
+                                                                    want):
+    *_, net, ps = models
+    cfg = pe.E2CRFConfig(level="score", eps_predictor="freqca", max_history=4, guard="off")
+    ring = torch.arange(4, dtype=torch.float32)[:, None, None, None].expand(4, B, T, C)
+    state = pe.init_cache_state(cfg, B, T, C, "cpu").replace(
+        cold=cold, step=5, last_full_step=3, hist_len=torch.tensor(hist_len, dtype=torch.int32),
+        crf_high_hist=ring.clone(), crf_t_hist=torch.tensor([0.9, 0.8, 0.7, 0.6]))
+    x = torch.from_numpy(_rand_x(13))
+    t = torch.tensor(0.5)
+    _, std = ps.marginal_prob(x, t.expand(B))
+    _, new, _ = psampler._refresh(net.compute_copy(), state, cfg, cfg.policy_params(), x, t,
+                                  t.expand(B), std)
+    assert new.hist_len.dtype == torch.int32 and int(new.hist_len) == want
+    torch.testing.assert_close(new.crf_high_hist[:3], ring[1:])
+    torch.testing.assert_close(new.crf_t_hist, torch.tensor([0.8, 0.7, 0.6, 0.5]))
+    torch.testing.assert_close(new.crf_low + new.crf_high_hist[3], new.eps_hat, atol=1e-6,
+                               rtol=0)
 
 
 def test_uncached_sampler_drops_the_remainder_like_jax(models):
@@ -189,11 +309,6 @@ def test_error_budget_guard_warns_raises_or_stays_silent(models, guard):
 @pytest.mark.parametrize(
     "kwargs, match",
     [
-        (dict(use_cache=True, cache_kwargs=dict(level="kv", use_freqca=True)), "FreqCa"),
-        (dict(use_cache=True, cache_kwargs=dict(level="kv", policy="macro", use_freqca=True)),
-         "level='kv'"),
-        (dict(use_cache=True, cache_kwargs=dict(eps_predictor="freqca")), "FreqCa"),
-        (dict(use_fresca=True), "FreSca"),
         (dict(mesh=object()), "distribution"),
         (dict(batches_per_call=2), "graph-captured"),
     ],

@@ -273,6 +273,57 @@ def test_chain_matches_jax_step_by_step(pair, schedulers, name):
                                    atol=1e-4, err_msg=f)
 
 
+FRESCA_CHAINS = {
+    "token-skip": dict(level="token", token_budget=4, tau_0=1.0, R=12, random_probe_ratio=0.2),
+    "kv-event": dict(level="kv", policy="event", K=0, R=10, tau_0=3.0, tau_warn=2.0),
+    # FreqCa's CRF ring at the KV level: it takes the CRF every 3 global
+    # steps, so a 40-step chain overfills its 5 entries.
+    "kv-event-freqca": dict(level="kv", policy="event", K=0, R=10, tau_0=3.0, tau_warn=2.0,
+                            use_freqca=True, max_history=5, freq_decomp_interval=3),
+    "kv-macro-freqca": dict(level="kv", policy="macro", K=2, R=100, use_freqca=True,
+                            max_history=4, freq_decomp_interval=7),
+}
+
+
+@pytest.mark.parametrize("name", list(FRESCA_CHAINS))
+def test_fresca_and_freqca_chains_match_jax_step_by_step(pair, schedulers, name):
+    """FreSca after the token and KV levels' forwards (the energy cutoff),
+    and the KV level's FreqCa ring: the same mode at every step, samples at
+    atol 5e-5, the ring's fields at the end of the chain."""
+    kw = FRESCA_CHAINS[name]
+    jcfg, variables, net = pair["einsum"]
+    js, ps = schedulers
+    n = 40
+    x0 = np.array(js.prior_sampling(jax.random.PRNGKey(16), (B, T, C)))
+    key = jax.random.PRNGKey(17)
+    jcc = je.E2CRFConfig(**kw)
+    state = je.init_cache_state(jcc, L, B, H, T, DH, D, C)
+    z, u = chain_draws(key, n)
+    fresca = dict(use_fresca=not kw.get("use_freqca"), fresca_low_scale=1.1,
+                  fresca_high_scale=1.4)
+    with recorded_steps(kw) as rec:
+        want, jstate = jsampler.sample_chain(variables, js, jnp.asarray(x0), key, state,
+                                             model_cfg=jcfg, cache_cfg=jcc, num_steps=n,
+                                             **fresca)
+        got, pstate = psampler.sample_chain(net, ps, torch.from_numpy(x0),
+                                            cache_cfg=pe.E2CRFConfig(**kw), num_steps=n,
+                                            step_noise=z, probe_noise=u, **fresca)
+    _modes_agree(rec)
+    assert len(set(rec["pmode"])) >= 2
+    _stats_agree(pe.cache_stats(pstate), je.cache_stats(jstate))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=5e-5)
+    if kw.get("use_freqca"):
+        k_hist = kw["max_history"]
+        assert int(pstate.hist_len) == int(jstate.hist_len) == k_hist
+        assert pstate.crf_high_hist.shape == (k_hist, L, T, D)
+        # One float32 ulp of the time grid (ROADMAP.md §C).
+        np.testing.assert_allclose(pstate.crf_t_hist.numpy(), np.asarray(jstate.crf_t_hist),
+                                   rtol=0, atol=6e-8)
+        for f in ("crf_low", "crf_high_hist"):
+            np.testing.assert_allclose(getattr(pstate, f).numpy(),
+                                       np.asarray(getattr(jstate, f)), atol=5e-5, err_msg=f)
+
+
 def _jax_sampler_noise(seed, num_batches, n):
     """Prior, step and probe draws of the JAX DiffusionSampler's host loop."""
     key = jax.random.PRNGKey(seed)
