@@ -56,7 +56,20 @@ Phases (any failure exits non-zero and prints no result):
    (sliced Wasserstein over 1000 directions and marginal Wasserstein, time
    and frequency domain, spectral density, self-split and dummy baselines)
    against the datamodule's train set.  Quality is printed, not gated; B1's
-   launches are counted.
+   launches are counted.  It runs at ``configs/sampler/default.yaml``'s
+   ``batches_per_call: 2``: replays of captured graphs.
+8. Graphs (run before 5): each flagship chain (uncached, score, token, KV
+   event and macro, the three of phase 6) at T = 1000 on 256 samples in
+   batches of 128, with ``batches_per_call`` 1 (the eager loop) and 2
+   (replays of segment graphs captured once per sampler): the same mode at
+   every step, equal cache statistics, samples bitwise equal or within
+   rtol 2e-5 / atol 5e-5, the launch checks through replays, B1 and B4
+   inside captured graphs; ms/step, launch calls a step and the busy share
+   over a 200-step window.  ``Trainer.fit`` at ``steps_per_call`` 1 and 16
+   (samples/s; per-step losses and final parameters against each other at
+   the JAX chunking test's tolerances), and 16 steps eager against one call
+   of 16 replays (ms/step, busy share, B1–B3 inside the step graph).  Phase
+   5's ``Trainer.fit`` runs at the default ``steps_per_call`` (16).
 
 Float32 matmuls run in full float32 (TF32 off for matmuls and cuDNN).  The
 line before the last is one JSON object with a record per kernel (its head
@@ -104,6 +117,17 @@ FREQ_CHAINS = {
     "score-fresca": (CACHE_KWARGS, {"use_fresca": True, "fresca_cutoff_strategy": "energy"}),
     "kv-event-freqca": (dict(KV_EVENT_KWARGS, use_freqca=True), {}),
 }
+# The chains the graphs phase runs eager and as replays of captured graphs.
+GRAPH_CHAINS = {
+    "uncached": (None, {}),
+    "score": (CACHE_KWARGS, {}),
+    "token": (TOKEN_KWARGS, {}),
+    "kv-event": (KV_EVENT_KWARGS, {}),
+    "kv-macro": (KV_MACRO_KWARGS, {}),
+    **FREQ_CHAINS,
+}
+# configs/sampler/default.yaml's batches_per_call, at which the evaluation runs.
+EVAL_BATCHES_PER_CALL = 2
 # configs/metrics/default.yaml with cli/sample.py's random_seed.
 METRICS_SEED = 42
 SW_DIRECTIONS = 1000
@@ -111,6 +135,10 @@ SW_DIRECTIONS = 1000
 # limit past rtol 2^-7, four times the largest reading on the H100 (1.95e-3,
 # PERF.md §6).
 MHA_SAME_ATOL = 8e-3
+# The CUDA API calls that put work on the card, as the profiler names
+# them: one kernel each, or one whole captured graph.
+LAUNCH_APIS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx",
+               "cudaGraphLaunch")
 
 
 class SmokeFailure(Exception):
@@ -458,20 +486,26 @@ def head_dim_sweep(torch, bda, mha) -> None:
 
 
 def device_breakdown(torch, label: str, fn, reps: int = 3, top: int = 8,
-                     no_grad: bool = True) -> None:
+                     no_grad: bool = True, warm_up: bool = True) -> dict:
     """Device time of ``fn`` by kernel (torch.profiler) and the share of its
-    wall time (measured under the profiler) that the device was busy."""
+    wall time (measured under the profiler) that the device was busy; one
+    unprofiled call first unless ``warm_up`` is False."""
     from torch.profiler import ProfilerActivity, profile
 
     with torch.set_grad_enabled(not no_grad):
-        fn()
+        if warm_up:
+            fn()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        # Device activity only: the kernels and the runtime's launch calls,
+        # without an event per PyTorch operator (a quarter of the trace to
+        # read, and less overhead in the window).
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
             wall_ms = 1e3 * (time.perf_counter() - t0) / reps
+    t_read = time.perf_counter()
     rows = []
     for e in prof.key_averages():
         dev_us = getattr(e, "self_device_time_total", None)
@@ -487,13 +521,18 @@ def device_breakdown(torch, label: str, fn, reps: int = 3, top: int = 8,
     busy = sum(r[0] for r in rows)
     if not rows:
         print(f"breakdown {label}: wall {wall_ms:.4f} ms, the profiler saw no device time")
-        return
-    launched = sum(e.count for e in prof.key_averages() if e.key == "cudaLaunchKernel") // reps
+        return dict(wall_ms=wall_ms, busy_ms=0.0, busy_share=0.0, api_calls={})
+    calls = {e.key: e.count / reps for e in prof.key_averages() if e.key in LAUNCH_APIS}
+    launched = int(calls.get("cudaLaunchKernel", 0))
+    graph_launches = int(calls.get("cudaGraphLaunch", 0))
     print(f"breakdown {label}: wall {wall_ms:.4f} ms, device busy {busy:.4f} ms "
-          f"({100 * busy / wall_ms:.1f}%), {launched} cudaLaunchKernel calls", flush=True)
+          f"({100 * busy / wall_ms:.1f}%), {launched} cudaLaunchKernel calls, "
+          f"{graph_launches} cudaGraphLaunch calls (trace read in "
+          f"{time.perf_counter() - t_read:.1f} s)", flush=True)
     for ms, count, name in rows[:top]:
         print(f"breakdown {label}: {ms:9.4f} ms {100 * ms / busy:5.1f}% x{count:<5d} "
               f"{name[:90]}", flush=True)
+    return dict(wall_ms=wall_ms, busy_ms=busy, busy_share=busy / wall_ms, api_calls=calls)
 
 
 def slice_phase(torch, bda) -> dict:
@@ -873,9 +912,234 @@ def freq_options_phase(torch, bda, mha) -> dict:
                 hist_len=torch.full((), k, dtype=torch.int32, device="cuda"),
                 crf_t_hist=torch.linspace(0.99, 0.9, k, device="cuda"), crf_low=score * 0.5,
                 crf_high_hist=torch.randn((k, b, t_len, 1), generator=gen, device="cuda"))
-        device_breakdown(torch, label, lambda: psampler._skip(state, skip_cfg, t, std, t_len),
+        device_breakdown(torch, label, lambda: psampler._skip(state, skip_cfg, t, std),
                          reps=50, top=6)
     return chains
+
+
+def record_modes(level):
+    """Record each step's mode, on the eager and the graphed chain alike,
+    from the host-counter helpers both call once a step: score level F/S,
+    token level F/T/S, KV level F/M/C.  The second value undoes it."""
+    from fdtpu_torch.cache import e2crf
+    from fdtpu_torch.sampling import graphed
+    from fdtpu_torch.sampling import sampler as psampler
+
+    modes, undo = [], []
+
+    def wrap(module, name, mode_of):
+        orig = getattr(module, name)
+
+        def wrapped(*args, **kwargs):
+            modes.append(mode_of(args))
+            return orig(*args, **kwargs)
+
+        setattr(module, name, wrapped)
+        undo.append(lambda: setattr(module, name, orig))
+
+    if level == "score":
+        for module in (psampler, graphed):
+            wrap(module, "_count_refresh", lambda a: "F")
+            wrap(module, "_count_skip", lambda a: "S")
+    elif level == "token":
+        for module in (psampler, graphed):
+            wrap(module, "_count_token", lambda a: "FTS"[a[1]])
+    elif level == "kv":
+        for module in (e2crf, graphed):
+            wrap(module, "count_kv_step", lambda a: "FMC"[a[1]])
+    return modes, lambda: [u() for u in reversed(undo)]
+
+
+def graphs_phase(torch, bda, mha) -> dict:
+    """Each flagship chain with ``batches_per_call`` 1 (the eager loop) and 2
+    (replays of captured segment graphs), T = 1000, 256 samples in batches
+    of 128: the same mode at every step, the same cache statistics, samples
+    bitwise equal or within rtol 2e-5 / atol 5e-5, the launch checks through
+    replays, B1 and B4 inside captured graphs; ms/step, and over a 200-step
+    window (2 batches of 100 steps) the launch calls a step and the device's
+    busy share.  Then training: ``Trainer.fit`` at ``steps_per_call`` 1 and
+    16, and the steady step eager against graphed."""
+    from fdtpu_torch.diffusion import VPScheduler
+    from fdtpu_torch.models import ScoreModel, ScoreModelConfig, init_score_model
+    from fdtpu_torch.sampling import DiffusionSampler
+
+    cfg = ScoreModelConfig(n_channels=1, max_len=FLAGSHIP["seq"], attention_impl="blockdiag")
+    net = init_score_model(cfg, torch.Generator().manual_seed(0))
+    scheduler = VPScheduler(fourier_noise_scaling=True).with_noise_scaling(cfg.max_len, "cuda")
+    model = ScoreModel(config=cfg, network=net, scheduler=scheduler)
+    layers = cfg.num_layers
+    steps = NUM_STEPS * (NUM_SAMPLES // SAMPLE_BATCH)
+    results = {}
+    for name, (kwargs, options) in GRAPH_CHAINS.items():
+        level = kwargs["level"] if kwargs else None
+        runs = {}
+        t_chain = time.perf_counter()
+        for per_call in (1, 2):
+            def make():
+                return DiffusionSampler(model, SAMPLE_BATCH, use_cache=kwargs is not None,
+                                        cache_kwargs=kwargs, batches_per_call=per_call, **options)
+
+            sampler = make()
+            modes, undo = record_modes(level)
+            torch.cuda.synchronize()
+            bda.launches = mha.launches = 0
+            try:
+                t0 = time.perf_counter()
+                samples = sampler.sample(NUM_SAMPLES, NUM_STEPS,
+                                         generator=torch.Generator(device="cuda").manual_seed(2))
+                torch.cuda.synchronize()
+                seconds = time.perf_counter() - t0
+            finally:
+                undo()
+            b1, b4 = bda.launches, mha.launches
+            stats = sampler.get_cache_stats()
+            full = stats["full_steps"] if kwargs else steps
+            b4_steps = 0
+            if level == "token":
+                b4_steps = stats["mixed_steps"]
+            elif level == "kv":
+                b4_steps = stats["mixed_steps"] + stats["cached_steps"]
+            check(tuple(samples.shape) == (NUM_SAMPLES, cfg.max_len, 1),
+                  f"graphs {name}: samples shape {tuple(samples.shape)}")
+            check(bool(torch.isfinite(samples).all()), f"graphs {name}: samples not finite")
+            check(b1 == layers * full,
+                  f"graphs {name} x{per_call}: {b1} B1 launches for {full} full forwards")
+            check(b4 == layers * b4_steps,
+                  f"graphs {name} x{per_call}: {b4} B4 launches for {b4_steps} steps")
+            run = dict(ms_per_step=1e3 * seconds / steps, samples_per_s=NUM_SAMPLES / seconds,
+                       launches_b1=b1, launches_b4=b4)
+            if per_call > 1:
+                (chain,) = sampler._chains.values()
+                inside = [launched for _, launched in chain.runner.graphs.values()]
+                run.update(graphs=len(inside), replays=chain.runner.replays,
+                           b1_in_graphs=sum(1 for n in inside if n[0]),
+                           b4_in_graphs=sum(1 for n in inside if n[3]))
+                check(chain.runner.captures and run["replays"] > 0,
+                      f"graphs {name}: the grouped chain replayed no graph")
+                check(run["b1_in_graphs"] > 0, f"graphs {name}: no captured graph holds B1")
+                if b4_steps:
+                    check(run["b4_in_graphs"] > 0, f"graphs {name}: no captured graph holds B4")
+            # The graphed window's first call captures its graphs: it is run
+            # once unprofiled; the eager window needs no warm-up.
+            window = make()
+            prof = device_breakdown(
+                torch, f"graphs-{name}-x{per_call}-200-steps",
+                lambda: window.sample(2 * SAMPLE_BATCH, 100,
+                                      generator=torch.Generator("cuda").manual_seed(3)),
+                reps=1, top=3, warm_up=per_call > 1)
+            run.update(window_wall_ms_per_step=prof["wall_ms"] / 200,
+                       window_busy_share=prof["busy_share"],
+                       window_calls_per_step={k: v / 200 for k, v in prof["api_calls"].items()})
+            runs[per_call] = (samples, modes, stats, run)
+        (s1, m1, st1, r1), (s2, m2, st2, r2) = runs[1], runs[2]
+        diverged = [i for i, (a, b) in enumerate(zip(m1, m2)) if a != b]
+        line = dict(eager=r1, graphed=r2, steps_moded=len(m1),
+                    phase_seconds=time.perf_counter() - t_chain,
+                    first_mode_divergence=diverged[:1],
+                    max_abs_diff=float((s1 - s2).abs().max()),
+                    bitwise_equal=bool(torch.equal(s1, s2)), cache_stats_equal=st1 == st2)
+        print(f"graphs {name}", json.dumps(line), flush=True)
+        check(len(m1) == len(m2) and not diverged,
+              f"graphs {name}: modes diverge first at step {diverged[:1]}")
+        check(st1 == st2, f"graphs {name}: cache statistics differ: {st1} vs {st2}")
+        check(line["bitwise_equal"] or bool(torch.allclose(s2, s1, rtol=2e-5, atol=5e-5)),
+              f"graphs {name}: samples differ by {line['max_abs_diff']:.3g}")
+        results[name] = line
+    results["train"] = graphs_train(torch, bda)
+    return results
+
+
+def graphs_train(torch, bda) -> dict:
+    """``Trainer.fit`` of the flagship, 2 epochs, at ``steps_per_call`` 1
+    and 16: samples/s (logging once an epoch), then per-step losses and the
+    final parameters (logging every step) against the JAX chunking test's
+    tolerances; the steady step eager against replayed, with its busy
+    share."""
+    from fdtpu_torch.data import SyntheticDatamodule
+    from fdtpu_torch.diffusion import VPScheduler
+    from fdtpu_torch.models import ScoreModel, ScoreModelConfig, init_score_model
+    from fdtpu_torch.train import Trainer, get_training_params, make_optimizer, train_step
+    from fdtpu_torch.train.trainer import GraphedSteps
+
+    cfg = ScoreModelConfig(n_channels=1, max_len=TRAIN_FLAGSHIP["seq"],
+                           attention_impl="blockdiag")
+    scheduler = VPScheduler(fourier_noise_scaling=True).with_noise_scaling(cfg.max_len, "cuda")
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        dm = SyntheticDatamodule(tmp, max_len=cfg.max_len, num_samples=TRAIN_SAMPLES,
+                                 batch_size=TRAIN_FLAGSHIP["batch"], fourier_transform=True,
+                                 standardize=True)
+        dm.prepare_data()
+        dm.setup()
+        n_steps = get_training_params(dm, TRAIN_EPOCHS)["num_training_steps"]
+        fits = {}
+        for log_every in (10_000, 1):
+            for spc in (1, 16):
+                model = ScoreModel(config=cfg, network=init_score_model(
+                    cfg, torch.Generator().manual_seed(0)), scheduler=scheduler,
+                    num_training_steps=n_steps)
+                trainer = Trainer(max_epochs=TRAIN_EPOCHS, run_dir=tmp,
+                                  run_id=f"spc{spc}-log{log_every}", seed=42,
+                                  log_every_n_steps=log_every, steps_per_call=spc)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                trainer.fit(model, dm)
+                torch.cuda.synchronize()
+                seconds = time.perf_counter() - t0
+                records = [json.loads(line) for line in trainer.metrics_path.read_text().splitlines()]
+                fits[log_every, spc] = (seconds, model, records, trainer.best_val_loss)
+        for spc in (1, 16):
+            out[f"spc{spc}_samples_per_s"] = TRAIN_EPOCHS * TRAIN_SAMPLES / fits[10_000, spc][0]
+        (_, m1, r1, v1), (_, m16, r16, v16) = fits[1, 1], fits[1, 16]
+        l1 = [r["train/loss"] for r in r1 if "train/loss" in r]
+        l16 = [r["train/loss"] for r in r16 if "train/loss" in r]
+        check(len(l1) == len(l16) == TRAIN_EPOCHS * len(dm.train_dataloader()),
+              f"graphs train: {len(l1)} and {len(l16)} step losses")
+        loss_rel = max(abs(a - b) / abs(a) for a, b in zip(l1, l16))
+        params = [(a, b) for a, b in zip(m1.network.state_dict().values(),
+                                          m16.network.state_dict().values())]
+        param_rel = max(float(((b - a).abs() / a.abs().clamp_min(1e-30)).max()) for a, b in params)
+        params_close = all(torch.allclose(b, a, rtol=2e-5, atol=2e-6) for a, b in params)
+        out.update(step_loss_max_rel_diff=loss_rel, params_max_rel_diff=param_rel,
+                   val_loss_rel_diff=abs(v16 - v1) / abs(v1), params_within_tol=params_close)
+        check(loss_rel <= 2e-4, f"graphs train: per-step losses differ by {loss_rel:.3g}")
+        check(out["val_loss_rel_diff"] <= 2e-4, f"graphs train: val loss {v16} vs {v1}")
+        check(params_close, f"graphs train: parameters past rtol 2e-5 / atol 2e-6 "
+              f"(max rel {param_rel:.3g})")
+
+        # The steady step: 16 eager steps against one call of 16 replays.
+        batches = [b for b in dm.train_dataloader()][:16]
+        net = init_score_model(cfg, torch.Generator().manual_seed(0)).requires_grad_(True)
+        opt = make_optimizer(net.parameters(), 1e-3, 1000)
+        gen = torch.Generator(device="cuda").manual_seed(7)
+        graphed = GraphedSteps(net, opt, scheduler, gen, False, 16)
+        dev_batches = [torch.from_numpy(b).cuda() for b in batches]
+
+        def eager():
+            for b in dev_batches:
+                train_step(net, opt, scheduler, b, gen)
+
+        def replayed():
+            graphed.run(batches)
+
+        for label, fn in (("eager", eager), ("graphed", replayed)):
+            fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(3):
+                fn()
+            torch.cuda.synchronize()
+            out[f"{label}_ms_per_step"] = 1e3 * (time.perf_counter() - t0) / 48
+            prof = device_breakdown(torch, f"graphs-train-{label}-16-steps", fn, reps=1, top=3,
+                                    no_grad=False)
+            out[f"{label}_busy_share"] = prof["busy_share"]
+            out[f"{label}_calls_per_step"] = {k: v / 16 for k, v in prof["api_calls"].items()}
+        inside = [launched for _, launched in graphed.runner.graphs.values()]
+        out["graph_launches"] = dict(zip(("b1", "b2", "b3", "b4"), map(sum, zip(*inside))))
+        check(all(out["graph_launches"][k] > 0 for k in ("b1", "b2", "b3")),
+              f"graphs train: the step graph lacks a kernel: {out['graph_launches']}")
+    print("graphs train", json.dumps(out), flush=True)
+    return out
 
 
 def eval_phase(torch, bda, model, dm) -> dict:
@@ -894,7 +1158,8 @@ def eval_phase(torch, bda, model, dm) -> dict:
     bda.launches = 0
     t0 = time.perf_counter()
     cal = calibrate_tau_0(model, num_samples=NUM_SAMPLES, num_diffusion_steps=NUM_STEPS,
-                          sample_batch_size=SAMPLE_BATCH, seed=3, cache_kwargs=base)
+                          sample_batch_size=SAMPLE_BATCH, seed=3, cache_kwargs=base,
+                          batches_per_call=EVAL_BATCHES_PER_CALL)
     torch.cuda.synchronize()
     cal_seconds = time.perf_counter() - t0
     steps = NUM_STEPS * (NUM_SAMPLES // SAMPLE_BATCH)
@@ -921,7 +1186,8 @@ def eval_phase(torch, bda, model, dm) -> dict:
                   calibration_seconds=cal_seconds, launches=cal_launches)
     for name, use_cache in (("uncached", False), ("cached", True)):
         sampler = DiffusionSampler(model, SAMPLE_BATCH, use_cache=use_cache,
-                                   cache_kwargs=CACHE_KWARGS if use_cache else None)
+                                   cache_kwargs=CACHE_KWARGS if use_cache else None,
+                                   batches_per_call=EVAL_BATCHES_PER_CALL)
         torch.cuda.synchronize()
         bda.launches = 0
         t0 = time.perf_counter()
@@ -1103,18 +1369,27 @@ def main() -> int:
     build.build([bda.SOURCE, bda.SOURCE_BWD, mha.SOURCE], verbose=True)
     print(f"build: {time.perf_counter() - t0:.1f} s", flush=True)
 
-    kernel_results = kernel_phase(torch, bda)
-    mha_results = mha_kernel_phase(torch, mha)
-    bwd_results = bwd_kernel_phase(torch, bda)
-    trainable = trainable_phase(torch, bda)
-    head_dim_sweep(torch, bda, mha)
-    chains = slice_phase(torch, bda)
-    levels = levels_phase(torch, bda, mha)
-    freq_chains = freq_options_phase(torch, bda, mha)
-    train, trained, dm = train_phase(torch, bda)
-    evaluation = eval_phase(torch, bda, trained, dm)
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        print(f"phase {name}: {time.perf_counter() - t0:.1f} s", flush=True)
+        return out
+
+    kernel_results = timed("kernels", kernel_phase, torch, bda)
+    mha_results = timed("kernel_mha", mha_kernel_phase, torch, mha)
+    bwd_results = timed("kernel_bwd", bwd_kernel_phase, torch, bda)
+    trainable = timed("trainable", trainable_phase, torch, bda)
+    timed("head_dim_sweep", head_dim_sweep, torch, bda, mha)
+    chains = timed("slice", slice_phase, torch, bda)
+    levels = timed("levels", levels_phase, torch, bda, mha)
+    freq_chains = timed("freq", freq_options_phase, torch, bda, mha)
+    graphed = timed("graphs", graphs_phase, torch, bda, mha)
+    train, trained, dm = timed("train", train_phase, torch, bda)
+    evaluation = timed("eval", eval_phase, torch, bda, trained, dm)
     level_chains = [c for c in levels.values() if isinstance(c, dict)]
     level_chains += list(freq_chains.values())
+    level_chains += [run for name, line in graphed.items() if name != "train"
+                     for run in (line["eager"], line["graphed"])]
 
     def kernel_record(name, source, replaces, launches, results):
         # The head case is the first float32 one; "cases" keeps every case's times.

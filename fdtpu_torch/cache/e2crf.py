@@ -21,8 +21,12 @@ The state is a dataclass of tensors on the sampling device.  Its float
 statistics (``err_acc``, ``drift_rate``, ``delta_tok``, ``eps_norm_ref`` …)
 are float32 tensors, as in the JAX package, so every decision near τ₀ is
 taken on the same float32 values; the step counters and the ``cold`` flag are
-host values, and each policy reads the device at most once a step.  Fields a
-level does not use are zero-size placeholders with the JAX package's shapes.
+host values, and each policy reads the device at most once a step.  Each
+policy and update is split into its device arithmetic (``*_terms``,
+:func:`kv_state_update`) and its host decision or counters, so that a
+captured graph can run the first while the host keeps the second
+(:mod:`fdtpu_torch.sampling.graphed`).  Fields a level does not use are
+zero-size placeholders with the JAX package's shapes.
 The ring's live count ``hist_len`` is a device tensor, so a FreqCa
 prediction reads nothing back from the device.
 """
@@ -153,8 +157,8 @@ class CacheState:
     realized_err_sum: torch.Tensor  # ()
     predicted_err_sum: torch.Tensor  # ()
     realized_err_max: torch.Tensor  # ()
-    # A host int until the first guard measurement, an int32 0-d tensor after.
-    guard_measurements: Union[int, torch.Tensor]
+    # () int32; one type from the start, so a captured graph can update it.
+    guard_measurements: torch.Tensor
     overrun: torch.Tensor  # () high-water mark of realized/predicted
     # () high-water mark of the refresh-time ‖ε̂‖, and ‖ε̂‖ at the cold
     # refresh; per token, (T,), at the token level.
@@ -243,7 +247,7 @@ def init_cache_state(
         realized_err_sum=zeros(),
         predicted_err_sum=zeros(),
         realized_err_max=zeros(),
-        guard_measurements=0,
+        guard_measurements=zeros(dtype=torch.int32),
         overrun=torch.ones((), dtype=torch.float32, device=device),
         eps_norm_ref=zeros(*norm_shape),
         eps_norm_cold=zeros(*norm_shape),
@@ -258,16 +262,50 @@ def macro_policy(
     else R`` global steps → MIXED over the first min(2K, T) tokens;
     otherwise → CACHED.  Decided on the host.  Returns ``(mode, mask (T,)
     bool, number of masked tokens)``."""
+    mode, count = macro_mode(pp, state, max_len)
+    return mode, torch.arange(max_len, device=device) < count, count
+
+
+def macro_mode(pp: PolicyParams, state: CacheState, max_len: int) -> tuple[int, int]:
+    """:func:`macro_policy`'s mode and count of recomputed tokens (the mask
+    is the first ``count`` tokens)."""
     step = state.step
-    refresh_count = min(2 * min(pp.K, max_len), max_len)
     interval = 500 if pp.R < 100 else pp.R
     if step == 0:
-        mode, count = MODE_FULL, max_len
-    elif step % interval == 0:
-        mode, count = MODE_MIXED, refresh_count
+        return MODE_FULL, max_len
+    if step % interval == 0:
+        return MODE_MIXED, min(2 * min(pp.K, max_len), max_len)
+    return MODE_CACHED, 0
+
+
+def event_policy_terms(
+    cfg: E2CRFConfig,
+    pp: PolicyParams,
+    state: CacheState,
+    x: torch.Tensor,
+    probe_u: Optional[torch.Tensor] = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The event policy's device arithmetic: the recompute mask (T,) bool and
+    ``(warn, count)`` int64, the mean drift past τ_warn and the masked count."""
+    max_len = x.shape[1]
+    if cfg.energy_weighting:
+        energy = torch.mean(x**2, dim=(0, 2))  # (T,)
+        energy_w = energy / (torch.mean(energy) + 1e-8)
     else:
-        mode, count = MODE_CACHED, 0
-    return mode, torch.arange(max_len, device=device) < count, count
+        energy_w = torch.ones((max_len,), dtype=x.dtype, device=x.device)
+    mask = (state.delta_tok * energy_w > pp.tau_0) | (
+        torch.arange(max_len, device=x.device) < min(pp.K, max_len)
+    )
+    if cfg.resolved_random_probe_ratio > 0.0:
+        mask = mask | (probe_u < pp.random_probe_ratio)
+    is_warn = torch.mean(state.delta_tok) > pp.tau_warn
+    return mask, torch.stack([is_warn.to(torch.int64), mask.sum()])
+
+
+def event_refresh_due(pp: PolicyParams, state: CacheState) -> bool:
+    """The event policy's full refresh decided by the host counters alone:
+    step 0 or the interval R expired."""
+    return state.step == 0 or state.step - state.last_full_step >= pp.R
 
 
 def event_policy(
@@ -286,23 +324,18 @@ def event_policy(
     tokens)``."""
     max_len = x.shape[1]
     ones = torch.ones((max_len,), dtype=torch.bool, device=x.device)
-    if state.step == 0 or state.step - state.last_full_step >= pp.R:
+    if event_refresh_due(pp, state):
         return MODE_FULL, ones, max_len
-    if cfg.energy_weighting:
-        energy = torch.mean(x**2, dim=(0, 2))  # (T,)
-        energy_w = energy / (torch.mean(energy) + 1e-8)
-    else:
-        energy_w = torch.ones((max_len,), dtype=x.dtype, device=x.device)
-    mask = (state.delta_tok * energy_w > pp.tau_0) | (
-        torch.arange(max_len, device=x.device) < min(pp.K, max_len)
-    )
-    if cfg.resolved_random_probe_ratio > 0.0:
-        mask = mask | (probe_u < pp.random_probe_ratio)
-    is_warn = torch.mean(state.delta_tok) > pp.tau_warn
-    warn, count = torch.stack([is_warn.to(torch.int64), mask.sum()]).tolist()
+    mask, flags = event_policy_terms(cfg, pp, state, x, probe_u)
+    mode, count = event_mode(*flags.tolist(), max_len)
+    return mode, (ones if mode == MODE_FULL else mask), count
+
+
+def event_mode(warn: int, count: int, max_len: int) -> tuple[int, int]:
+    """Mode and recomputed-token count from the event policy's read flags."""
     if warn:
-        return MODE_FULL, ones, max_len
-    return (MODE_MIXED if count else MODE_CACHED), mask, count
+        return MODE_FULL, max_len
+    return (MODE_MIXED if count else MODE_CACHED), count
 
 
 def effective_tau(cfg: E2CRFConfig, pp: PolicyParams, state: CacheState) -> torch.Tensor:
@@ -329,6 +362,47 @@ def score_skip_decision(cfg: E2CRFConfig, pp: PolicyParams, state: CacheState) -
     return bool(decide)
 
 
+def token_policy_terms(
+    cfg: E2CRFConfig,
+    pp: PolicyParams,
+    state: CacheState,
+    x: torch.Tensor,
+    step: Union[int, torch.Tensor, None] = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The token policy's device arithmetic: the energy-weighted drift
+    ``w_drift`` (T,), its mean, and ``(calibration, skip)`` int64 — every
+    per-token rate 0, and the predicted accumulated error within the budget.
+    ``step`` is the global step, a host int (default ``state.step``) or a
+    0-d device tensor."""
+    max_len = x.shape[1]
+    if cfg.energy_weighting:
+        energy = torch.mean(x.float() ** 2, dim=tuple(i for i in range(x.ndim) if i != 1))
+        energy_w = energy / (torch.mean(energy) + 1e-8)
+    else:
+        energy_w = torch.ones((max_len,), dtype=torch.float32, device=x.device)
+    w_drift = state.delta_tok.float() * energy_w
+    mean_drift = torch.mean(w_drift)
+    age_next = ((state.step if step is None else step) - state.last_tok + 1).float()
+    skip = torch.mean(w_drift * age_next) <= effective_tau(cfg, pp, state)
+    calibration = torch.sum(state.delta_tok) == 0
+    return w_drift, mean_drift, torch.stack([calibration, skip]).to(torch.int64)
+
+
+def token_refresh_due(pp: PolicyParams, state: CacheState) -> bool:
+    """The token level's FULL step decided by the host alone: a cold cache or
+    the interval R expired."""
+    return state.cold or state.step - state.last_full_step >= pp.R
+
+
+def token_mode(state: CacheState, calibration: int, skip: int) -> int:
+    """The mode of a step the host counters did not decide, from the read
+    flags: FULL on the calibration step right after a refresh, else SKIP
+    or TOPK."""
+    if state.step - state.last_full_step == 1 and calibration:
+        return TOKEN_FULL
+    return TOKEN_SKIP if skip else TOKEN_TOPK
+
+
 def token_policy(
     cfg: E2CRFConfig, pp: PolicyParams, state: CacheState, x: torch.Tensor
 ) -> tuple[int, torch.Tensor, torch.Tensor]:
@@ -340,25 +414,10 @@ def token_policy(
     Returns ``(mode, w_drift (T,), mean_drift ())``, float32, with the
     energy-weighted drift ``w_drift``.  One host read unless the host
     counters decide a refresh."""
-    max_len = x.shape[1]
-    if cfg.energy_weighting:
-        energy = torch.mean(x.float() ** 2, dim=tuple(i for i in range(x.ndim) if i != 1))
-        energy_w = energy / (torch.mean(energy) + 1e-8)
-    else:
-        energy_w = torch.ones((max_len,), dtype=torch.float32, device=x.device)
-    w_drift = state.delta_tok.float() * energy_w
-    mean_drift = torch.mean(w_drift)
-    since_full = state.step - state.last_full_step
-    if state.cold or since_full >= pp.R:
+    w_drift, mean_drift, flags = token_policy_terms(cfg, pp, state, x)
+    if token_refresh_due(pp, state):
         return TOKEN_FULL, w_drift, mean_drift
-    age_next = (state.step - state.last_tok + 1).float()
-    skip = torch.mean(w_drift * age_next) <= effective_tau(cfg, pp, state)
-    if since_full == 1:
-        calibration = torch.sum(state.delta_tok) == 0
-        calibration, skip = torch.stack([calibration, skip]).tolist()
-        if calibration:
-            return TOKEN_FULL, w_drift, mean_drift
-    return (TOKEN_SKIP if bool(skip) else TOKEN_TOPK), w_drift, mean_drift
+    return token_mode(state, *flags.tolist()), w_drift, mean_drift
 
 
 # Per-measurement floor on the predicted budget in the overrun ratio.
@@ -389,7 +448,11 @@ def record_guard_measurement(
     bool 0-d tensor; the update is masked on the device, so a measurement
     decided there (the token level) needs no host read."""
     dt = state.realized_err_sum.dtype
-    measured = torch.as_tensor(measured, device=state.overrun.device)
+    if not isinstance(measured, torch.Tensor):
+        if not measured:
+            return state
+        # A fill, not a copy from the host (which a graph capture refuses).
+        measured = torch.ones((), dtype=torch.bool, device=state.overrun.device)
     ratio = realized / torch.clamp(predicted, min=GUARD_PREDICTED_FLOOR)
     miscal = torch.clamp(
         torch.maximum(ratio, realized / torch.clamp(abs_target, min=1e-3)), 0.0, 10.0
@@ -421,11 +484,28 @@ def update_after_forward(
     low and high parts at ``timestep`` go into the history ring (shifted
     left, ``hist_len`` capped at ``max_history``)."""
     check_level(cfg)
-    max_len = crf.shape[1]
+    state = kv_state_update(cfg, state, kv_new, crf, timestep, kv_ring_due(cfg, state))
+    return count_kv_step(state, mode, n_masked, crf.shape[1])
+
+
+def kv_ring_due(cfg: E2CRFConfig, state: CacheState) -> bool:
+    """Whether this KV-level step adds an entry to FreqCa's ring."""
+    return cfg.use_freqca and state.step % cfg.freq_decomp_interval == 0
+
+
+def kv_state_update(
+    cfg: E2CRFConfig,
+    state: CacheState,
+    kv_new: tuple[torch.Tensor, torch.Tensor],
+    crf: torch.Tensor,
+    timestep: Optional[torch.Tensor],
+    ring: bool,
+) -> CacheState:
+    """The device half of :func:`update_after_forward`: drift, store, CRF
+    and (``ring``) FreqCa's ring."""
     delta = torch.linalg.vector_norm((crf - state.crf_prev).to(state.delta_tok.dtype), dim=-1)
-    n_recomputed = {MODE_FULL: max_len, MODE_MIXED: n_masked}.get(mode, 0)
     freqca = {}
-    if cfg.use_freqca and state.step % cfg.freq_decomp_interval == 0:
+    if ring:
         crf_low, crf_high = frequency_decompose_fft(
             crf.reshape(-1, *crf.shape[-2:]).float(), cfg.low_freq_ratio
         )
@@ -439,17 +519,20 @@ def update_after_forward(
             hist_len=torch.clamp(state.hist_len + 1, max=cfg.max_history),
         )
     return state.replace(
-        k=kv_new[0],
-        v=kv_new[1],
-        crf_prev=crf,
-        delta_tok=torch.mean(delta, dim=0),
+        k=kv_new[0], v=kv_new[1], crf_prev=crf, delta_tok=torch.mean(delta, dim=0), **freqca
+    )
+
+
+def count_kv_step(state: CacheState, mode: int, n_masked: int, max_len: int) -> CacheState:
+    """The host half of :func:`update_after_forward`: the step counters."""
+    n_recomputed = {MODE_FULL: max_len, MODE_MIXED: n_masked}.get(mode, 0)
+    return state.replace(
         last_full_step=state.step if mode == MODE_FULL else state.last_full_step,
         recompute_count=state.recompute_count + n_recomputed,
         cache_hit_count=state.cache_hit_count + max_len - n_recomputed,
         full_steps=state.full_steps + (mode == MODE_FULL),
         mixed_steps=state.mixed_steps + (mode == MODE_MIXED),
         cached_steps=state.cached_steps + (mode == MODE_CACHED),
-        **freqca,
     )
 
 

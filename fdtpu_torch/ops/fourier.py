@@ -13,6 +13,7 @@ FreqCa decomposition follows the reference's FFT branch.
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Optional, Union
 
@@ -131,6 +132,24 @@ def hermite_design_matrix(s: torch.Tensor, order: int) -> torch.Tensor:
     return hermite_polynomials(s, order=order).T
 
 
+@contextlib.contextmanager
+def _cusolver(device: torch.device):
+    """cuSOLVER for a solve on the card.  PyTorch's default picks MAGMA for
+    some shapes (this 4×4 system with a few hundred right-hand sides), whose
+    ``getrs`` refuses CUDA-graph capture ("operation not permitted when
+    stream is capturing"); cuSOLVER's captures at every shape, and is what
+    the default picks at the flagship's 23,936 right-hand sides."""
+    if device.type != "cuda":
+        yield
+        return
+    previous = torch.backends.cuda.preferred_linalg_library()
+    torch.backends.cuda.preferred_linalg_library("cusolver")
+    try:
+        yield
+    finally:
+        torch.backends.cuda.preferred_linalg_library(previous)
+
+
 def predict_hermite(
     history: torch.Tensor,
     timesteps: torch.Tensor,
@@ -172,6 +191,7 @@ def predict_hermite(
     eye = torch.eye(order + 1, dtype=history.dtype, device=history.device)
     hth = h_matrix.T @ h_matrix + eye * 1e-6
     flat = history.reshape(k, -1) * w[:, None]
-    coeffs = torch.linalg.solve_ex(hth, h_matrix.T @ flat, check_errors=False).result
+    with _cusolver(history.device):
+        coeffs = torch.linalg.solve_ex(hth, h_matrix.T @ flat, check_errors=False).result
     prediction = (h_target @ coeffs).reshape(history.shape[1:])
     return torch.where(span == 0, history[-1], prediction)

@@ -94,7 +94,8 @@ def calibrate_tau_0(
     the score level, R = 100, ``eps_order`` 1); the arms run with the guard
     off.  The guard thresholds default to the configuration's raw
     ``guard_abs_tol`` (0.0 unless set, as in the JAX package) and
-    ``guard_max_tol``.  ``mesh`` and ``batches_per_call > 1`` raise
+    ``guard_max_tol``.  ``batches_per_call`` groups batches as
+    :class:`DiffusionSampler` does (the same values); ``mesh`` raises
     ``NotImplementedError``, as the sampler does.
     """
     base_kwargs: dict[str, Any] = {"level": "score", "R": 100, "eps_order": 1}
@@ -123,9 +124,13 @@ def calibrate_tau_0(
 
     arms: list[TauArm] = []
     chosen: Optional[float] = None
+    # One sampler for every arm: only τ₀ differs, so a grouped chain's graphs
+    # are captured once and replayed by every arm.
+    cached = DiffusionSampler(model, sample_batch_size, use_cache=True,
+                              cache_kwargs={**pilot_kwargs, "tau_0": float(ladder[0])},
+                              batches_per_call=batches_per_call) if ladder else None
     for tau in ladder:
-        cached = DiffusionSampler(model, sample_batch_size, use_cache=True,
-                                  cache_kwargs={**pilot_kwargs, "tau_0": float(tau)})
+        cached.set_tau_0(tau)
         s_ca = run(cached, seed, prior_noise, step_noise)
         stats = cached.get_cache_stats()
         delta = float(sw(s_ca)["sliced_wasserstein_mean"])

@@ -41,8 +41,9 @@ marked cold for each new trajectory (quirk Q5, opt-out
 
 from __future__ import annotations
 
+import dataclasses
 import warnings
-from typing import Any, Optional
+from typing import Any, Optional, Union
 
 import torch
 
@@ -93,7 +94,7 @@ def _prep_cache_for_new_batch(state: CacheState) -> CacheState:
 
 
 def eps_predict(
-    c: CacheState, steps_ahead: float, cfg: E2CRFConfig, t: torch.Tensor
+    c: CacheState, steps_ahead: Union[float, torch.Tensor], cfg: E2CRFConfig, t: torch.Tensor
 ) -> torch.Tensor:
     """Extrapolate ε̂ ``steps_ahead`` past the last full computation, to the
     step at time ``t``.
@@ -131,25 +132,35 @@ def eps_predict(
     return pred
 
 
-def _refresh(network, c: CacheState, cfg: E2CRFConfig, pp: PolicyParams, x, t, t_batch, std):
+def _refresh(network, c: CacheState, cfg: E2CRFConfig, pp: PolicyParams, x, t, t_batch, std,
+             since=None):
     """Full step: run the network, measure the drift against what a skip
-    would have predicted, and roll the ε̂ history (and FreqCa's ring)."""
+    would have predicted, and roll the ε̂ history (and FreqCa's ring).
+    ``since`` is ``step − last_full_step``: the host's counters by default,
+    a 0-d int64 device tensor in a captured graph.  The step counters are
+    left to :func:`_count_refresh`."""
     score = network(x, t_batch)
     eps_new = -std[..., None] * score
     denom = torch.linalg.vector_norm(eps_new) + 1e-8
     # Trajectory noise scale: high-water mark of the refresh-time ‖ε̂‖.
     norm_ref = torch.maximum(c.eps_norm_ref, denom.to(x.dtype))
-    steps_since = max(c.step - c.last_full_step, 1)
     zero = torch.zeros_like(c.eps_gap)
+    # A device value on both paths, so that the division below is the same
+    # operation eager and captured (CUDA divides by a host scalar through
+    # its reciprocal).
+    if since is None:
+        steps_since = torch.full_like(zero, max(c.step - c.last_full_step, 1))
+    else:
+        steps_since = torch.clamp(since, min=1).to(zero.dtype)
     if c.cold:
         rel = drift_rate = zero
     else:
         # The denominator is floored at 10% of the trajectory scale.
-        eps_pred = eps_predict(c, float(steps_since), cfg, t)
+        eps_pred = eps_predict(c, steps_since, cfg, t)
         rel = guard_relative_error(torch.linalg.vector_norm(eps_new - eps_pred), denom, norm_ref)
         drift_rate = rel / steps_since
     measured = (not c.cold) and steps_since > 1
-    trace = (float(measured), rel, denom, c.err_acc, float(steps_since))
+    trace = (measured, rel, denom, c.err_acc, steps_since)
     # A refresh that closes a real skip span measures the realized error
     # against what the budget predicted (err_acc).
     c = record_guard_measurement(c, measured, rel, c.err_acc, pp.guard_abs_tol)
@@ -170,32 +181,55 @@ def _refresh(network, c: CacheState, cfg: E2CRFConfig, pp: PolicyParams, x, t, t
     c = c.replace(
         eps_norm_ref=norm_ref,
         eps_norm_cold=denom.to(c.eps_norm_cold.dtype) if cold else c.eps_norm_cold,
-        cold=False,
         eps_prev2=eps_new if cold else c.eps_prev,
         eps_gap2=zero if cold else c.eps_gap,
         eps_prev=eps_new if cold else c.eps_hat,
-        eps_gap=zero if cold else torch.full_like(zero, float(steps_since)),
+        eps_gap=zero if cold else steps_since,
         eps_hat=eps_new,
         drift_rate=drift_rate,
         err_acc=zero,
-        last_full_step=c.step,
-        full_steps=c.full_steps + 1,
-        recompute_count=c.recompute_count + x.shape[1],
         **freqca,
     )
     return score, c, trace
 
 
-def _skip(c: CacheState, cfg: E2CRFConfig, t, std, max_len: int):
-    """Skipped step: rebuild the score from the predicted noise."""
-    eps = eps_predict(c, float(c.step - c.last_full_step + 1), cfg, t)
+def _count_refresh(c: CacheState, max_len: int) -> CacheState:
+    """The host counters of a full step (score and token level)."""
+    return c.replace(last_full_step=c.step, cold=False, full_steps=c.full_steps + 1,
+                     recompute_count=c.recompute_count + max_len)
+
+
+def _count_skip(c: CacheState, max_len: int) -> CacheState:
+    """The host counters of a skipped step (score and token level)."""
+    return c.replace(cached_steps=c.cached_steps + 1, cache_hit_count=c.cache_hit_count + max_len)
+
+
+def _skip(c: CacheState, cfg: E2CRFConfig, t, std, since=None):
+    """Skipped step: rebuild the score from the predicted noise (``since``
+    as in :func:`_refresh`; the counters are left to :func:`_count_skip`)."""
+    if since is None:
+        ahead = float(c.step - c.last_full_step + 1)
+    else:
+        ahead = (since + 1).to(c.eps_gap.dtype)
+    eps = eps_predict(c, ahead, cfg, t)
     score = -eps / std[..., None]
-    c = c.replace(
-        err_acc=c.err_acc + c.drift_rate,
-        cached_steps=c.cached_steps + 1,
-        cache_hit_count=c.cache_hit_count + max_len,
-    )
-    return score, c
+    return score, c.replace(err_acc=c.err_acc + c.drift_rate)
+
+
+def _filled(like: torch.Tensor, value) -> torch.Tensor:
+    """``like``-shaped tensor of ``value``: a host number, or a 0-d device
+    tensor (a captured graph reads its step counters on the device)."""
+    if isinstance(value, torch.Tensor):
+        return torch.zeros_like(like) + value.to(like.dtype)
+    return torch.full_like(like, value)
+
+
+def _index_fill(t: torch.Tensor, idx: torch.Tensor, value) -> torch.Tensor:
+    """``t.index_fill(0, idx, value)`` for a host number or a 0-d device
+    tensor (``index_fill`` reads a tensor value back to the host)."""
+    if isinstance(value, torch.Tensor):
+        return t.index_copy(0, idx, _filled(idx, value).to(t.dtype))
+    return t.index_fill(0, idx, value)
 
 
 def _tok_norms(eps: torch.Tensor) -> torch.Tensor:
@@ -237,17 +271,27 @@ def _token_step(network, c: CacheState, cfg: E2CRFConfig, pp: PolicyParams, x, t
                 low_bonus, probe):
     """One step of the token level (``token_level_body``): FULL, TOPK or SKIP.
     ``probe()`` gives the step's (T,) probe uniforms, drawn only at TOPK."""
+    mode, w_drift, mean_drift = token_policy(cfg, pp, c, x)
+    score, c = _token_mode_step(network, c, cfg, pp, x, t_batch, std, low_bonus, probe,
+                                mode, w_drift, mean_drift, c.step)
+    return score, _count_token(c, mode, cfg, x.shape[1])
+
+
+def _token_mode_step(network, c: CacheState, cfg: E2CRFConfig, pp: PolicyParams, x, t_batch,
+                     std, low_bonus, probe, mode, w_drift, mean_drift, step):
+    """The token level's step in ``mode`` with the policy's ``w_drift`` and
+    ``mean_drift``; ``step`` is the global step, a host int or a 0-d device
+    tensor.  The counters are left to :func:`_count_token`."""
     max_len = x.shape[1]
     stdc = std[..., None]
     budget = min(int(cfg.token_budget), max_len)
     # Per-token linear extrapolation of ε̂ (order 0: frozen reuse).
-    age = (c.step - c.last_tok).to(x.dtype)  # (T,)
+    age = (step - c.last_tok).to(x.dtype)  # (T,)
     eps_pred = c.eps_hat
     if cfg.eps_order != 0:
         gap = c.gap_tok[None, :, None]
         slope = torch.where(gap > 0, (c.eps_hat - c.eps_prev) / torch.clamp(gap, min=1.0), 0.0)
         eps_pred = c.eps_hat + slope * age[None, :, None]
-    mode, w_drift, mean_drift = token_policy(cfg, pp, c, x)
 
     if mode == TOKEN_FULL:
         score, kv, _ = score_apply_cached(network, x, t_batch, (c.k, c.v), None, MODE_FULL)
@@ -269,15 +313,11 @@ def _token_step(network, c: CacheState, cfg: E2CRFConfig, pp: PolicyParams, x, t
             eps_prev=eps_new if c.cold else c.eps_hat,
             gap_tok=torch.zeros_like(age) if c.cold else age,
             eps_hat=eps_new,
-            last_tok=torch.full_like(c.last_tok, c.step),
+            last_tok=_filled(c.last_tok, step),
             delta_tok=rate,
             eps_norm_ref=norm_ref,
             eps_norm_cold=tok_norms if c.cold else c.eps_norm_cold,
             err_acc=torch.zeros_like(c.err_acc),
-            last_full_step=c.step,
-            cold=False,
-            full_steps=c.full_steps + 1,
-            recompute_count=c.recompute_count + max_len,
         )
         return score, c
 
@@ -313,22 +353,27 @@ def _token_step(network, c: CacheState, cfg: E2CRFConfig, pp: PolicyParams, x, t
             eps_prev=c.eps_prev.index_copy(1, idx, c.eps_hat.index_select(1, idx)),
             gap_tok=c.gap_tok.index_copy(0, idx, age_rows),
             eps_hat=c.eps_hat.index_copy(1, idx, eps_rows),
-            last_tok=c.last_tok.index_fill(0, idx, c.step),
+            last_tok=_index_fill(c.last_tok, idx, step),
             delta_tok=c.delta_tok.index_copy(0, idx, rate_rows),
             eps_norm_ref=c.eps_norm_ref.index_copy(0, idx, ref_rows),
             err_acc=c.err_acc + err_inc.to(c.err_acc.dtype),
-            mixed_steps=c.mixed_steps + 1,
-            recompute_count=c.recompute_count + budget,
-            cache_hit_count=c.cache_hit_count + (max_len - budget),
         )
         return score, c
 
-    c = c.replace(
-        err_acc=c.err_acc + mean_drift.to(c.err_acc.dtype),
-        cached_steps=c.cached_steps + 1,
-        cache_hit_count=c.cache_hit_count + max_len,
-    )
+    c = c.replace(err_acc=c.err_acc + mean_drift.to(c.err_acc.dtype))
     return -eps_pred / stdc, c
+
+
+def _count_token(c: CacheState, mode: int, cfg: E2CRFConfig, max_len: int) -> CacheState:
+    """The host counters of a token-level step in ``mode``."""
+    if mode == TOKEN_FULL:
+        return _count_refresh(c, max_len)
+    if mode == TOKEN_TOPK:
+        budget = min(int(cfg.token_budget), max_len)
+        return c.replace(mixed_steps=c.mixed_steps + 1,
+                         recompute_count=c.recompute_count + budget,
+                         cache_hit_count=c.cache_hit_count + (max_len - budget))
+    return _count_skip(c, max_len)
 
 
 def _kv_step(network, c: CacheState, cfg: E2CRFConfig, pp: PolicyParams, x, t, t_batch, probe):
@@ -341,6 +386,18 @@ def _kv_step(network, c: CacheState, cfg: E2CRFConfig, pp: PolicyParams, x, t, t
         mode, mask, n_masked = event_policy(cfg, pp, c, x, probe_u)
     score, kv, crf = score_apply_cached(network, x, t_batch, (c.k, c.v), mask, mode)
     return score, update_after_forward(cfg, c, mode, n_masked, kv, crf, t)
+
+
+def _fresca(use_fresca: bool, low_scale, high_scale, cutoff_ratio: float, cutoff_strategy: str,
+            num_steps: int):
+    """Each step's score transform: FreSca with these settings, or none."""
+    def fresca(score: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+        if not use_fresca:
+            return score
+        return apply_fresca_to_score(score, low_scale, high_scale, cutoff_ratio, cutoff_strategy,
+                                     timestep=t, num_steps=num_steps)
+
+    return fresca
 
 
 @torch.no_grad()
@@ -385,13 +442,8 @@ def sample_chain(
             return step_noise[i].to(device=x.device, dtype=x.dtype)
         return torch.randn(x.shape, generator=generator, device=x.device, dtype=x.dtype)
 
-    def fresca(score: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
-        if not use_fresca:
-            return score
-        return apply_fresca_to_score(
-            score, fresca_low_scale, fresca_high_scale, fresca_cutoff_ratio,
-            fresca_cutoff_strategy, timestep=t, num_steps=num_steps,
-        )
+    fresca = _fresca(use_fresca, fresca_low_scale, fresca_high_scale, fresca_cutoff_ratio,
+                     fresca_cutoff_strategy, num_steps)
 
     x = x0
     if cache_cfg is None:
@@ -434,8 +486,10 @@ def sample_chain(
                                            low_bonus, probe)
             elif score_skip_decision(cache_cfg, pp, cache):
                 score, cache, trace = _refresh(network, cache, cache_cfg, pp, x, t, t_batch, std)
+                cache = _count_refresh(cache, max_len)
             else:
-                score, cache = _skip(cache, cache_cfg, t, std, max_len)
+                score, cache = _skip(cache, cache_cfg, t, std)
+                cache = _count_skip(cache, max_len)
                 trace = skipped
         if guard_trace:
             traces.append(trace)
@@ -457,8 +511,16 @@ class DiffusionSampler:
     ``cache_kwargs`` takes the fields of :class:`E2CRFConfig`, FreqCa's
     included (``eps_predictor="freqca"`` at the score level, ``use_freqca``
     at the KV level); ``use_fresca`` and the ``fresca_*`` arguments scale each
-    step's score by frequency band, with the JAX package's defaults.  Not
-    ported yet (ROADMAP.md): ``mesh`` and ``batches_per_call > 1``.
+    step's score by frequency band, with the JAX package's defaults.
+
+    ``batches_per_call`` > 1 groups that many full-size batches as the JAX
+    package's resident path does, when there is more than one batch: on a
+    CUDA network each group's trajectories run as replays of segment graphs
+    captured once per sampler and shape (:mod:`fdtpu_torch.sampling.graphed`),
+    on a CPU network the same segments run eagerly; the remainder of fewer
+    than ``batches_per_call`` batches takes the per-batch path.  The values
+    are those of ``batches_per_call=1``, the eager per-step loop.  ``mesh``
+    is not ported yet (ROADMAP.md).
     """
 
     def __init__(
@@ -477,10 +539,6 @@ class DiffusionSampler:
     ) -> None:
         if mesh is not None:
             raise NotImplementedError("mesh is not ported yet (ROADMAP.md: distribution)")
-        if batches_per_call > 1:
-            raise NotImplementedError(
-                "batches_per_call > 1 is not ported yet (ROADMAP.md: graph-captured sampling)"
-            )
         self.score_model = score_model
         self.noise_scheduler = score_model.scheduler
         self.sample_batch_size = sample_batch_size
@@ -499,6 +557,16 @@ class DiffusionSampler:
         self.fresca_high_scale = fresca_high_scale
         self.fresca_cutoff_ratio = fresca_cutoff_ratio
         self.fresca_cutoff_strategy = fresca_cutoff_strategy
+        self.batches_per_call = max(1, int(batches_per_call))
+        # The grouped path's policy knobs, device tensors that its graphs read.
+        self.policy_params = cfg.policy_params(self.device) if cfg is not None else None
+        self._chains: dict[tuple, Any] = {}
+
+    def set_tau_0(self, tau_0: float) -> None:
+        """Change the skip budget τ₀ in place: the captured graphs read it
+        from the device, so they stay valid."""
+        self.cache_config = dataclasses.replace(self.cache_config, tau_0=float(tau_0))
+        self.policy_params.tau_0.fill_(float(tau_0))
 
     def _check_level_settings(self, cfg: E2CRFConfig) -> None:
         """The JAX sampler's checks of the token and KV settings: a token
@@ -571,6 +639,9 @@ class DiffusionSampler:
             generator = torch.Generator(device=self.device).manual_seed(0)
 
         num_batches = max(1, num_samples // self.sample_batch_size)
+        if self.batches_per_call > 1 and num_batches > 1:
+            return self._sample_grouped(num_batches, num_diffusion_steps, generator,
+                                        prior_noise, step_noise, probe_noise)
         all_samples = []
         cache_state: Optional[CacheState] = None
 
@@ -598,20 +669,86 @@ class DiffusionSampler:
                 self.noise_scheduler,
                 x0,
                 cache_state,
-                cache_cfg=self.cache_config,
-                num_steps=num_diffusion_steps,
                 step_noise=None if step_noise is None else step_noise[:, rows],
                 probe_noise=None if probe_noise is None else probe_noise[batch_idx],
                 generator=generator,
-                use_fresca=self.use_fresca,
-                fresca_low_scale=self.fresca_low_scale,
-                fresca_high_scale=self.fresca_high_scale,
-                fresca_cutoff_ratio=self.fresca_cutoff_ratio,
-                fresca_cutoff_strategy=self.fresca_cutoff_strategy,
+                **self._chain_kwargs(num_diffusion_steps),
             )
             all_samples.append(x)
 
         self.last_cache_state = cache_state
+        self._check_error_budget()
+        return torch.cat(all_samples, dim=0)
+
+    def _chain_kwargs(self, num_steps: int) -> dict:
+        return dict(
+            cache_cfg=self.cache_config, num_steps=num_steps, use_fresca=self.use_fresca,
+            fresca_low_scale=self.fresca_low_scale, fresca_high_scale=self.fresca_high_scale,
+            fresca_cutoff_ratio=self.fresca_cutoff_ratio,
+            fresca_cutoff_strategy=self.fresca_cutoff_strategy,
+        )
+
+    def _graphed_chain(self, num_steps: int, inject_steps: bool, inject_probes: bool):
+        """The sampler's chain graphs for this shape, made at first use."""
+        from fdtpu_torch.sampling.graphed import GraphedChain
+
+        key = (num_steps, inject_steps, inject_probes)
+        chain = self._chains.get(key)
+        if chain is None:
+            fresca = _fresca(self.use_fresca, self.fresca_low_scale, self.fresca_high_scale,
+                             self.fresca_cutoff_ratio, self.fresca_cutoff_strategy, num_steps)
+            chain = GraphedChain(
+                self.score_model.network, self.noise_scheduler, self.cache_config,
+                self.policy_params, self._init_cache(self.sample_batch_size),
+                self.sample_batch_size, num_steps, fresca, self.device, inject_steps,
+                inject_probes,
+            )
+            self._chains[key] = chain
+        return chain
+
+    def _sample_grouped(self, num_batches, num_steps, generator, prior_noise, step_noise,
+                        probe_noise) -> torch.Tensor:
+        """``batches_per_call`` > 1 (class docstring): the JAX package's
+        grouping — the same per-batch draws, the cache carried across
+        batches and marked cold (or re-initialised under
+        ``reset_between_batches``), the first batch fresh, the remainder
+        through the per-batch path."""
+        batch = self.sample_batch_size
+        chain = self._graphed_chain(num_steps, step_noise is not None, probe_noise is not None)
+        gen = chain.generator
+        if generator is not None:
+            gen.set_state(generator.get_state())
+        num_grouped = num_batches - num_batches % self.batches_per_call
+        all_samples = []
+        cache_state: Optional[CacheState] = None
+        for batch_idx in range(num_batches):
+            rows = slice(batch_idx * batch, (batch_idx + 1) * batch)
+            x0 = self.sample_prior(batch, gen, None if prior_noise is None else prior_noise[rows])
+            steps = None if step_noise is None else step_noise[:, rows]
+            probes = None if probe_noise is None else probe_noise[batch_idx]
+            fresh = batch_idx == 0 or (self.use_cache and self.cache_config.reset_between_batches)
+            if batch_idx < num_grouped:
+                if self.use_cache:
+                    if fresh:
+                        chain.reset(self._init_cache(batch))
+                    else:
+                        chain.mark_cold()
+                all_samples.append(chain.sample_batch(x0, steps, probes).clone())
+                continue
+            if self.use_cache:
+                if cache_state is None:
+                    cache_state = chain.state
+                cache_state = (self._init_cache(batch) if fresh
+                               else _prep_cache_for_new_batch(cache_state))
+            x, cache_state = sample_chain(
+                self.score_model.network, self.noise_scheduler, x0, cache_state,
+                step_noise=steps, probe_noise=probes, generator=gen,
+                **self._chain_kwargs(num_steps),
+            )
+            all_samples.append(x)
+        if generator is not None:
+            generator.set_state(gen.get_state())
+        self.last_cache_state = cache_state if cache_state is not None else chain.snapshot()
         self._check_error_budget()
         return torch.cat(all_samples, dim=0)
 

@@ -5,10 +5,11 @@ schedule (port of ``fdtpu/train/state.py:27-66``).
 from 0 to ``lr_max`` and back to 0.  ``clip_by_global_norm_`` has optax's
 semantics: nothing is added to the norm (``torch.nn.utils.clip_grad_norm_``
 adds 1e-6), and gradients whose norm is at least ``max_norm`` become
-``g / norm * max_norm``.  ``torch.optim.AdamW`` then decays every parameter,
-as ``optax.adamw`` does with no mask.  The learning rate of update ``k``
-(counting from 0) is ``schedule(k)``, as optax evaluates its schedule at the
-count of updates before this one, so the first update moves nothing.
+``g / norm * max_norm``.  :class:`ClippedAdamW` then takes optax's AdamW
+step and decays every parameter, as ``optax.adamw`` does with no mask.  The
+learning rate of update ``k`` (counting from 0) is ``schedule(k)``, as optax
+evaluates its schedule at the count of updates before this one, so the
+first update moves nothing.
 """
 
 from __future__ import annotations
@@ -17,6 +18,10 @@ import math
 from typing import Callable, Iterable, Optional
 
 import torch
+
+# optax.adamw's defaults, which the JAX package trains with.
+ADAM_BETAS = (0.9, 0.999)
+ADAM_EPS = 1e-8
 
 
 def make_lr_schedule(
@@ -61,7 +66,14 @@ def clip_by_global_norm_(grads: list[torch.Tensor], max_norm: float) -> torch.Te
 class ClippedAdamW:
     """``optax.chain(clip_by_global_norm, adamw(schedule))`` on torch
     parameters: :meth:`step` clips the gradients, takes one AdamW step at
-    the scheduled rate and advances the schedule."""
+    the scheduled rate and advances the schedule.
+
+    The update is optax's, written out in ``_foreach`` operations on
+    float32 device tensors, with no host value in it: the rate of update k
+    is entry k of a float32 table of ``schedule`` on the parameters' device
+    (``schedule`` is constant from entry ``horizon - 1`` on), the update count
+    is a device tensor, so a step can be captured into a CUDA graph and
+    replayed, and an eager step runs the same arithmetic."""
 
     def __init__(
         self,
@@ -69,15 +81,19 @@ class ClippedAdamW:
         schedule: Callable[[int], float],
         gradient_clip_val: float = 1.0,
         weight_decay: float = 0.01,
+        horizon: int = 1,
     ) -> None:
         self.params = [p for p in params if p.requires_grad]
         self.schedule = schedule
         self.gradient_clip_val = gradient_clip_val
+        self.weight_decay = weight_decay
         self.count = 0
-        self.adamw = torch.optim.AdamW(
-            self.params, lr=schedule(0), betas=(0.9, 0.999), eps=1e-8,
-            weight_decay=weight_decay,
-        )
+        device = self.params[0].device
+        self.rates = torch.tensor([schedule(k) for k in range(max(1, horizon))],
+                                  dtype=torch.float32, device=device)
+        self.updates = torch.zeros((), dtype=torch.int64, device=device)
+        self.mu = [torch.zeros_like(p) for p in self.params]
+        self.nu = [torch.zeros_like(p) for p in self.params]
 
     @property
     def lr(self) -> float:
@@ -85,15 +101,37 @@ class ClippedAdamW:
         return self.schedule(self.count)
 
     def zero_grad(self) -> None:
-        self.adamw.zero_grad(set_to_none=True)
+        for p in self.params:
+            p.grad = None
 
     def step(self) -> None:
-        grads = [p.grad for p in self.params if p.grad is not None]
-        clip_by_global_norm_(grads, self.gradient_clip_val)
-        self.adamw.step()
+        """One update (:meth:`update`) and the schedule's host count."""
+        self.update()
         self.count += 1
-        for group in self.adamw.param_groups:
-            group["lr"] = self.lr
+
+    @torch.no_grad()
+    def update(self) -> None:
+        """The update on the device alone: what a captured graph replays
+        (the caller then advances :attr:`count`)."""
+        grads = [p.grad for p in self.params]
+        clip_by_global_norm_(grads, self.gradient_clip_val)
+        b1, b2 = ADAM_BETAS
+        last = self.rates.shape[0] - 1
+        lr = self.rates.index_select(0, torch.clamp(self.updates, max=last).reshape(1))[0]
+        self.updates.add_(1)
+        torch._foreach_mul_(self.mu, b1)
+        torch._foreach_add_(self.mu, grads, alpha=1.0 - b1)
+        torch._foreach_mul_(self.nu, b2)
+        torch._foreach_addcmul_(self.nu, grads, grads, value=1.0 - b2)
+        count = self.updates.to(torch.float32)
+        mu_hat = torch._foreach_div(self.mu, 1.0 - torch.pow(b1, count))
+        nu_hat = torch._foreach_div(self.nu, 1.0 - torch.pow(b2, count))
+        torch._foreach_sqrt_(nu_hat)
+        torch._foreach_add_(nu_hat, ADAM_EPS)
+        update = torch._foreach_div(mu_hat, nu_hat)
+        torch._foreach_add_(update, self.params, alpha=self.weight_decay)
+        torch._foreach_mul_(update, -lr)
+        torch._foreach_add_(self.params, update)
 
 
 def make_optimizer(
@@ -106,4 +144,6 @@ def make_optimizer(
 ) -> ClippedAdamW:
     """AdamW + warmup-cosine + global-norm clipping over ``params``."""
     schedule = make_lr_schedule(lr_max, num_training_steps, num_warmup_steps)
-    return ClippedAdamW(params, schedule, gradient_clip_val, weight_decay)
+    # The schedule is constant (0) from step max(2, num_training_steps) on.
+    return ClippedAdamW(params, schedule, gradient_clip_val, weight_decay,
+                        horizon=max(2, num_training_steps) + 1)

@@ -118,7 +118,7 @@ def test_calibration_draws_the_same_noise_for_the_pilot_and_every_arm(models):
     assert DEFAULT_LADDER == (1.5, 1.2, 1.0, 0.8, 0.6, 0.4)
 
 
-@pytest.mark.parametrize("kw, match", [(dict(batches_per_call=2), "graph-captured"),
+@pytest.mark.parametrize("kw, match", [(dict(mesh=object(), batches_per_call=2), "distribution"),
                                        (dict(mesh=object()), "distribution")])
 def test_calibration_options_the_sampler_lacks_raise(models, kw, match):
     with pytest.raises(NotImplementedError, match=match):

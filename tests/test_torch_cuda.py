@@ -24,6 +24,7 @@ import torch
 
 from fdtpu_torch.kernels import attention as mha
 from fdtpu_torch.kernels import blockdiag_attention as bda
+from fdtpu_torch.sampling import DiffusionSampler
 
 pytestmark = pytest.mark.cuda
 
@@ -424,15 +425,191 @@ def test_freqca_skip_and_fresca_read_nothing_back_from_the_card(cuda):
     std = torch.rand((b, t_len), generator=cuda, device="cuda") + 0.5
     score = torch.randn((b, t_len, 1), generator=cuda, device="cuda")
     # Warm up: cuFFT plans, cuSOLVER handles and the allocator's first blocks.
-    psampler._skip(state, cfg, t, std, t_len)
+    psampler._skip(state, cfg, t, std)
     apply_fresca_to_score(score, 1.0, 1.5, 0.5, "energy", timestep=t, num_steps=1000)
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
-        skipped, new = psampler._skip(state, cfg, t, std, t_len)
+        skipped, new = psampler._skip(state, cfg, t, std)
         scaled = apply_fresca_to_score(score, 1.0, 1.5, 0.5, "energy", timestep=t,
                                        num_steps=1000)
     finally:
         torch.cuda.set_sync_debug_mode("default")
-    assert new.cached_steps == state.cached_steps + 1
+    assert psampler._count_skip(new, t_len).cached_steps == state.cached_steps + 1
     assert bool(torch.isfinite(skipped).all()) and bool(torch.isfinite(scaled).all())
+
+
+# ------------------------------------------------------------- CUDA graphs
+GRAPH_CHAINS = {
+    "uncached": (None, {}),
+    "score": (dict(level="score", R=8, tau_0=0.5, guard="off"), {}),
+    "score-freqca-fresca": (dict(level="score", R=8, tau_0=0.5, eps_predictor="freqca",
+                                 max_history=4, hermite_order=2, guard="off"),
+                            dict(use_fresca=True)),
+    "token": (dict(level="token", token_budget=4, tau_0=5.0, R=12, random_probe_ratio=0.2,
+                   guard="off"), {}),
+    "kv-event-freqca": (dict(level="kv", policy="event", K=1, R=6, tau_0=0.5, tau_warn=1e9,
+                             random_probe_ratio=0.1, use_freqca=True, freq_decomp_interval=4),
+                        {}),
+    "kv-macro": (dict(level="kv", policy="macro", K=2, R=100), {}),
+}
+
+
+def _graph_model(attention_impl="blockdiag", dropout=0.0):
+    from fdtpu_torch.diffusion import VPScheduler
+    from fdtpu_torch.models import ScoreModel, ScoreModelConfig, init_score_model
+
+    cfg = ScoreModelConfig(n_channels=2, max_len=33, d_model=24, num_layers=2, n_head=4,
+                           dim_feedforward=48, attention_impl=attention_impl, dropout=dropout)
+    net = init_score_model(cfg, torch.Generator().manual_seed(0))
+    sched = VPScheduler(fourier_noise_scaling=True, beta_max=2.0).with_noise_scaling(33, "cuda")
+    return ScoreModel(config=cfg, network=net, scheduler=sched)
+
+
+def _modes(level):
+    """Each step's mode, from the host-counter helpers both chains call."""
+    from fdtpu_torch.cache import e2crf
+    from fdtpu_torch.sampling import graphed
+    from fdtpu_torch.sampling import sampler as psampler
+
+    names = {"score": ("_count_refresh", "_count_skip"), "token": ("_count_token",),
+             "kv": ("count_kv_step",)}.get(level, ())
+    modules = (e2crf, graphed) if level == "kv" else (psampler, graphed)
+    modes = []
+    mp = pytest.MonkeyPatch()
+    for module in modules:
+        for name in names:
+            orig = getattr(module, name)
+
+            def wrapped(*a, _orig=orig, _name=name, **k):
+                modes.append(_name if level == "score" else a[1])
+                return _orig(*a, **k)
+
+            mp.setattr(module, name, wrapped)
+    return modes, mp.undo
+
+
+@pytest.mark.parametrize("name", list(GRAPH_CHAINS))
+def test_graphed_chain_equals_the_eager_chain(cuda, name):
+    """``batches_per_call=2`` (replays of captured graphs) against 1 (the
+    eager loop) at 50 steps, 3 batches (two grouped, one through the
+    per-batch path), twice over the same sampler: the same mode at every
+    step, equal cache statistics and launch counts (B1 per layer and full
+    forward, B4 per layer and cached step, through replays), samples within
+    rtol 2e-5 / atol 5e-5 (bitwise expected: the same kernels)."""
+    kw, options = GRAPH_CHAINS[name]
+    model = _graph_model()
+    layers = model.config.num_layers
+    level = kw["level"] if kw else None
+    samplers = {k: DiffusionSampler(model, 4, use_cache=kw is not None, cache_kwargs=kw,
+                                    batches_per_call=k, **options) for k in (1, 2)}
+    for _ in range(2):
+        runs = {}
+        for k, sampler in samplers.items():
+            modes, undo = _modes(level)
+            bda.launches = mha.launches = 0
+            try:
+                x = sampler.sample(12, 50, generator=torch.Generator("cuda").manual_seed(5))
+                torch.cuda.synchronize()
+            finally:
+                undo()
+            runs[k] = (x, modes, sampler.get_cache_stats(), (bda.launches, mha.launches))
+        (x1, m1, s1, c1), (x2, m2, s2, c2) = runs[1], runs[2]
+        first = next((i for i, (a, b) in enumerate(zip(m1, m2)) if a != b), None)
+        assert len(m1) == len(m2) and first is None, f"modes differ first at step {first}"
+        assert s1 == s2 and c1 == c2
+        full = s1["full_steps"] if kw else 3 * 50
+        cached = (s1.get("mixed_steps", 0) + s1.get("cached_steps", 0) if level == "kv"
+                  else s1.get("mixed_steps", 0) if level == "token" else 0)
+        assert c2 == (layers * full, layers * cached)
+        torch.testing.assert_close(x2, x1, rtol=2e-5, atol=5e-5)
+    (chain,) = samplers[2]._chains.values()
+    assert chain.runner.replays > 0
+    assert any(launched[0] for _, launched in chain.runner.graphs.values())
+    if level in ("token", "kv"):
+        assert any(launched[3] for _, launched in chain.runner.graphs.values())
+
+
+def test_graphed_train_steps_equal_eager_steps_with_dropout(cuda):
+    """Eight optimizer steps with dropout on, as replays of the captured
+    step graph (two calls of four) and eagerly: the same losses and
+    parameters (rtol 2e-5 / atol 2e-6, tests/test_trainer_chunked.py's),
+    B2 and B3 counted through replays."""
+    import numpy as np
+
+    from fdtpu_torch.train import make_optimizer, train_step
+    from fdtpu_torch.train.trainer import GraphedSteps
+
+    model = _graph_model(dropout=0.1)
+    rng = np.random.default_rng(0)
+    batches = [rng.standard_normal((8, 33, 2)).astype(np.float32) for _ in range(8)]
+    results = []
+    for graphed in (False, True):
+        net = _graph_model(dropout=0.1).network.train().requires_grad_(True)
+        opt = make_optimizer(net.parameters(), 1e-3, 20)
+        gen = torch.Generator("cuda").manual_seed(9)
+        bda.launches_bwd = bda.launches_trainable = 0
+        if graphed:
+            steps = GraphedSteps(net, opt, model.scheduler, gen, False, 4)
+            losses = torch.cat([steps.run(batches[:4]), steps.run(batches[4:])])
+            assert steps.runner.replays == 7
+        else:
+            losses = torch.stack([train_step(net, opt, model.scheduler,
+                                             torch.from_numpy(b).cuda(), gen) for b in batches])
+        torch.cuda.synchronize()
+        assert (bda.launches_bwd, bda.launches_trainable) == (2 * 8, 2 * 8)
+        assert opt.count == 8
+        results.append((losses, [p.detach().clone() for p in net.parameters()]))
+    (l1, p1), (l2, p2) = results
+    torch.testing.assert_close(l2, l1, rtol=2e-4, atol=0)
+    for a, b in zip(p1, p2):
+        torch.testing.assert_close(b, a, rtol=2e-5, atol=2e-6)
+
+
+def test_graph_replays_read_nothing_back_from_the_card(cuda, monkeypatch):
+    """Every replay of a sampler's and a trainer's segment graphs runs
+    under ``set_sync_debug_mode("error")``: no graph reads the host (the
+    policies' one read a step happens between replays)."""
+    import numpy as np
+
+    from fdtpu_torch.train import make_optimizer
+    from fdtpu_torch.train.trainer import GraphedSteps
+    from fdtpu_torch.utils import graphs
+
+    replays = []
+    real_replay = graphs.CudaGraph.replay
+
+    def strict_replay(self):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            real_replay(self)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        replays.append(1)
+
+    monkeypatch.setattr(graphs.CudaGraph, "replay", strict_replay)
+    model = _graph_model()
+    for name in ("score-freqca-fresca", "token", "kv-event-freqca"):
+        kw, options = GRAPH_CHAINS[name]
+        sampler = DiffusionSampler(model, 4, use_cache=True, cache_kwargs=kw,
+                                   batches_per_call=2, **options)
+        sampler.sample(8, 30, generator=torch.Generator("cuda").manual_seed(1))
+    net = _graph_model(dropout=0.1).network.train().requires_grad_(True)
+    steps = GraphedSteps(net, make_optimizer(net.parameters(), 1e-3, 20), model.scheduler,
+                         torch.Generator("cuda").manual_seed(2), False, 4)
+    steps.run([np.ones((8, 33, 2), np.float32)] * 4)
+    torch.cuda.synchronize()
+    assert len(replays) > 100
+
+
+def test_a_failed_capture_raises_instead_of_running_eager(cuda, monkeypatch):
+    from fdtpu_torch.utils import graphs
+
+    def refuse(self, fn):
+        raise RuntimeError("capture refused")
+
+    monkeypatch.setattr(graphs.CudaGraph, "capture", refuse)
+    sampler = DiffusionSampler(_graph_model(), 4, use_cache=True,
+                               cache_kwargs=GRAPH_CHAINS["score"][0], batches_per_call=2)
+    with pytest.raises(RuntimeError, match="capture refused"):
+        sampler.sample(8, 10, generator=torch.Generator("cuda").manual_seed(1))

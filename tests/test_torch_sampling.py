@@ -310,7 +310,7 @@ def test_error_budget_guard_warns_raises_or_stays_silent(models, guard):
     "kwargs, match",
     [
         (dict(mesh=object()), "distribution"),
-        (dict(batches_per_call=2), "graph-captured"),
+        (dict(mesh=object(), batches_per_call=2), "distribution"),
     ],
 )
 def test_unported_options_raise_not_implemented(models, kwargs, match):

@@ -331,3 +331,108 @@ def test_scheduler_add_noise_matches_jax():
     got = psched.add_noise(torch.from_numpy(x), torch.from_numpy(noise), torch.from_numpy(t))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6, atol=1e-7)
     assert dataclasses.is_dataclass(psched) and psched.T == jsched.T == 1.0
+
+
+def _fit_port(tmp_path, dm, steps_per_call, dropout=0.1, net=None, run_id=None):
+    cfg = ScoreModelConfig(**dict(TINY, dropout=dropout))
+    scheduler = VPScheduler(fourier_noise_scaling=True).with_noise_scaling(16, "cpu")
+    if net is None:
+        net = init_score_model(cfg, torch.Generator().manual_seed(0), device="cpu")
+    model = ScoreModel(cfg, net, scheduler,
+                       num_training_steps=get_training_params(dm, 2)["num_training_steps"])
+    trainer = Trainer(max_epochs=2, run_dir=tmp_path / "runs", run_id=run_id or f"spc{steps_per_call}",
+                      seed=1, log_every_n_steps=1, steps_per_call=steps_per_call)
+    return trainer.fit(model, dm), trainer
+
+
+def _records(trainer):
+    return [json.loads(line) for line in trainer.metrics_path.read_text().splitlines()]
+
+
+@pytest.fixture
+def odd_datamodule(tmp_path):
+    """Train batches of 16 with a shorter last one, so a group of
+    same-shape steps ends before the odd batch."""
+    dm = SyntheticDatamodule(tmp_path / "data", max_len=16, num_samples=90, batch_size=16,
+                             fourier_transform=True, standardize=True, random_seed=2)
+    dm.prepare_data()
+    dm.setup()
+    shapes = [b.shape[0] for b in dm.train_dataloader()]
+    assert len(set(shapes)) == 2 and shapes[-1] < shapes[0] and len(shapes) >= 3
+    return dm
+
+
+def test_trainer_steps_per_call_gives_the_per_step_trajectory(tmp_path, odd_datamodule):
+    """``steps_per_call=16`` against 1, dropout on: the JAX chunking test's
+    tolerances (tests/test_trainer_chunked.py) — parameters rtol 2e-5 /
+    atol 2e-6, per-step losses and the val loss rtol 2e-4."""
+    one, t1 = _fit_port(tmp_path, odd_datamodule, 1)
+    many, tk = _fit_port(tmp_path, odd_datamodule, 16)
+    for (name, a), b in zip(one.network.state_dict().items(), many.network.state_dict().values()):
+        np.testing.assert_allclose(b.numpy(), a.numpy(), rtol=2e-5, atol=2e-6, err_msg=name)
+    r1, rk = _records(t1), _records(tk)
+    step_losses = [{r["step"]: r["train/loss"] for r in rs if "train/loss" in r} for rs in (r1, rk)]
+    assert step_losses[0].keys() == step_losses[1].keys() and len(step_losses[0]) >= 6
+    for s in step_losses[0]:
+        np.testing.assert_allclose(step_losses[1][s], step_losses[0][s], rtol=2e-4, err_msg=s)
+    assert tk.best_val_loss == pytest.approx(t1.best_val_loss, rel=2e-4)
+    assert [r.get("lr") for r in rk] == [r.get("lr") for r in r1]
+
+
+def test_trainer_steps_per_call_matches_jax(tmp_path, odd_datamodule, monkeypatch):
+    """The port's ``Trainer(steps_per_call=16)`` against the JAX package's
+    over two epochs, dropout off, with the JAX step keys' t and z handed to
+    every train and val loss (per step ``key, step_key = split(key)``, then
+    ``split(step_key, 3)`` for t and z): per-step losses, val losses, rates
+    and the best-val parameters at this file's tolerance (1e-4)."""
+    from fdtpu.train.trainer import Trainer as JaxTrainer
+    from fdtpu_torch.train import trainer as trainer_mod
+
+    jcfg, variables, net = _pair(dropout=0.0)
+    dm = odd_datamodule
+    j_dm = JaxSynthetic(data_dir=tmp_path / "jaxdata", max_len=16, num_samples=90,
+                        batch_size=16, fourier_transform=True, standardize=True, random_seed=2)
+    j_dm.prepare_data()
+    j_dm.setup()
+    n_steps = get_training_params(dm, 2)["num_training_steps"]
+    jmodel = jsm.ScoreModel(config=jcfg, variables=variables,
+                            scheduler=_schedulers()[0], num_training_steps=n_steps)
+    jtrainer = JaxTrainer(max_epochs=2, run_dir=tmp_path / "jax", run_id="j", seed=1,
+                          log_every_n_steps=1, steps_per_call=16, use_mesh=False,
+                          save_resume_state=False)
+    jmodel = jtrainer.fit(jmodel, j_dm)
+
+    def step_keys():
+        key = jax.random.PRNGKey(1)
+        while True:
+            key, step_key = jax.random.split(key)
+            yield step_key
+
+    keys, real_loss = step_keys(), trainer_mod.sde_loss
+
+    def jax_draws_loss(network, scheduler, x, generator=None, **kw):
+        key_t, key_z, _ = jax.random.split(next(keys), 3)
+        t = jax.random.uniform(key_t, (x.shape[0],), jnp.float32) * (1.0 - 1e-5) + 1e-5
+        z = jax.random.normal(key_z, tuple(x.shape), jnp.float32)
+        return real_loss(network, scheduler, x, timesteps=torch.from_numpy(np.array(t)),
+                         noise=torch.from_numpy(np.array(z)), **kw)
+
+    monkeypatch.setattr(trainer_mod, "sde_loss", jax_draws_loss)
+    model, trainer = _fit_port(tmp_path, dm, 16, dropout=0.0, net=net, run_id="port")
+    got, want = _records(trainer), _records(jtrainer)
+    assert [sorted(r) for r in got] == [sorted(r) for r in want]
+    for g, w in zip(got, want):
+        assert g["step"] == w["step"] and g["epoch"] == w["epoch"]
+        for k in ("train/loss", "train/loss_epoch", "val/loss"):
+            if k in w:
+                np.testing.assert_allclose(g[k], w[k], rtol=1e-4, err_msg=f"{k} at {w['step']}")
+        np.testing.assert_allclose(g["lr"], w["lr"], rtol=1e-6, atol=1e-10)
+    port = state_dict_to_jax_variables(model.network.state_dict())["params"]
+    divergence = _first_divergence(port, jax.tree.map(np.asarray, jmodel.variables["params"]),
+                                   atol=1e-4)
+    assert divergence is None, f"first parameter past 1e-4: {divergence}"
+
+
+def test_epochs_per_call_is_not_ported(tmp_path):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        Trainer(run_dir=tmp_path, run_id="r", epochs_per_call=2)
