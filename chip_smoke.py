@@ -19,7 +19,8 @@ Phases (any failure exits non-zero and prints no result):
    the card could take (``bound_ms``); then B3, the autograd Function over B1
    and B2, against autograd through the plain forward, and its device time;
    B1's and B2's float32 and B4's float32 and bfloat16 times at head_dim
-   4..32 (which pipe binds).
+   4..32 (which pipe binds), each beside its plain version's (where
+   ``attention_impl="auto"`` crosses over).
 3. Slice: the flagship score model (d_model 72, 10 layers, 12 heads, FFN
    2048, 187 frequency tokens; random weights from a seed) on CUDA with the
    block-diagonal attention kernel: ``score_apply`` against the einsum path
@@ -31,9 +32,9 @@ Phases (any failure exits non-zero and prints no result):
 4. Token and KV levels: a 50-step token-level chain on CUDA against the CPU
    (the same noise and probe uniforms; the same mode at every step); the
    token level at ``cli/ablation_cache.py``'s ``token_full`` arm (256
-   samples, batches of 128) and the KV level's event arm (``kv_event_arm(10)``)
-   and macro policy (``cli/benchmark_cache.py``) on one batch of 128, T = 1000
-   steps each, with B1 counted once per layer and FULL step and B4 once per
+   samples, batches of 128, T = 1000) and the KV level's event arm
+   (``kv_event_arm(10)``) and macro policy (``cli/benchmark_cache.py``) on one
+   batch of 128, T = 200, with B1 counted once per layer and FULL step and B4 once per
    layer and TOPK, MIXED or CACHED step; the cost of the K/V store's
    transposed copy after a blockdiag refresh; where a 200-step token-level
    and KV-event window's time goes.
@@ -47,7 +48,7 @@ Phases (any failure exits non-zero and prints no result):
    and probe uniforms; the same mode at every step; the same FreqCa ring) of
    the score level with the FreqCa predictor, the score level with FreSca
    (energy cutoff) and the KV event policy with FreqCa's CRF ring; the same
-   three chains at T = 1000 on one batch of 128 with B1 and B4 counted; where
+   three chains at T = 200 on one batch of 128 with B1 and B4 counted; where
    a FreSca call's and a FreqCa skip step's time goes.
 7. Evaluation, on the network phase 5 trained: ``calibrate_tau_0`` (256 pilot
    samples, T = 1000, batches of 128, the score level's operating point
@@ -70,6 +71,22 @@ Phases (any failure exits non-zero and prints no result):
    the JAX chunking test's tolerances), and 16 steps eager against one call
    of 16 replays (ms/step, busy share, B1–B3 inside the step graph).  Phase
    5's ``Trainer.fit`` runs at the default ``steps_per_call`` (16).
+9. CLIs, last: ``python -m fdtpu_torch.cli.train``'s ``main`` on the synthetic
+   data (2000 samples of 187, 2 epochs, ``configs/train.yaml`` and the
+   default score model at its full width, ``attention_impl: auto`` resolving
+   to B1) with B1–B3 counted; ``Trainer(resume=True)`` after one epoch
+   against two straight epochs (losses, rates, parameters, optimizer and
+   generator state bitwise); one epoch at ``accumulate_grad_batches=2``;
+   ``fdtpu_torch.cli.sample``'s ``main`` on that run, 256 samples at
+   T = 1000 in ``configs/sampler/default.yaml``'s batches of 50, uncached,
+   at the score level's operating point and at the token level's
+   ``token_full`` arm, with B1 = 10 × full forwards and B4 = 10 × TOPK steps
+   and the "eval:"-style metrics of ``results.yaml``; the MLP and LSTM
+   backbones at their configs' widths, one train-CLI epoch each, then a
+   50-step uncached chain on their weights CUDA against the CPU.
+
+The levels and freq phases run their KV and FreqCa chains on one batch at
+T = 200 (``SHORT_CHAIN_STEPS``): the graphs phase runs each at T = 1000.
 
 Float32 matmuls run in full float32 (TF32 off for matmuls and cuDNN).  The
 line before the last is one JSON object with a record per kernel (its head
@@ -111,6 +128,9 @@ TRAIN_EPOCHS = 2
 NUM_STEPS = 1000
 NUM_SAMPLES = 256
 SAMPLE_BATCH = 128
+# The depth of the levels and freq phases' KV and FreqCa chains on one batch:
+# the graphs phase runs the same chains at T = 1000 (its eager twins).
+SHORT_CHAIN_STEPS = 200
 # The sampler's FreqCa and FreSca options on the flagship's operating points.
 FREQ_CHAINS = {
     "score-freqca": (dict(CACHE_KWARGS, eps_predictor="freqca"), {}),
@@ -461,7 +481,9 @@ def head_dim_sweep(torch, bda, mha) -> None:
     """Which pipe binds B1, B2 and B4: times at the main path's B, T, H and
     head_dim 4..32 (B1, B2 in float32; B4 at the square shape in float32 and
     bfloat16).  The exps stay B·H·T² while the multiply-adds grow with
-    head_dim, so a time that follows head_dim is the FMA (or tensor) pipe's."""
+    head_dim, so a time that follows head_dim is the FMA (or tensor) pipe's.
+    Beside each, the plain version's time on the same inputs: the crossover
+    that ``attention_impl="auto"`` takes (``resolve_attention_impl``)."""
     g = torch.Generator(device="cuda").manual_seed(13)
     for dh in (4, 6, 8, 16, 32):
         for name, (b, t, h, _) in (("blockdiag_mha", FLAGSHIP.values()),
@@ -471,18 +493,22 @@ def head_dim_sweep(torch, bda, mha) -> None:
             v = torch.randn((b, h, t, dh), generator=g, device="cuda")
             if name == "blockdiag_mha":
                 ms = time_ms(torch, lambda: bda.blockdiag_mha_cuda(q, k, v))
+                plain_ms = time_ms(torch, lambda: bda.blockdiag_mha_plain(q, k, v))
             else:
                 ms = time_ms(torch, lambda: bda.blockdiag_mha_bwd_cuda(q, k, v, q))
+                plain_ms = time_ms(torch, lambda: bda.blockdiag_mha_bwd_plain(q, k, v, q))
             print("kernel_sweep", json.dumps({"kernel": name, "shape": [b, t, h, dh],
-                                              "dtype": "float32", "ms": ms}), flush=True)
+                                              "dtype": "float32", "ms": ms,
+                                              "plain_ms": plain_ms}), flush=True)
         b, t, h, _ = FLAGSHIP.values()
         q, k, v = (torch.randn((b, t, h, dh), generator=g, device="cuda") for _ in range(3))
         for dtype in (torch.float32, torch.bfloat16):
             args = [a.to(dtype) for a in (q, k, v)]
             ms = time_ms(torch, lambda: mha.fused_mha_cuda(*args))
+            plain_ms = time_ms(torch, lambda: mha.mha_plain(*args))
             print("kernel_sweep", json.dumps({"kernel": "fused_mha", "shape": [b, t, t, h, dh],
-                                              "dtype": str(dtype).split(".")[-1], "ms": ms}),
-                  flush=True)
+                                              "dtype": str(dtype).split(".")[-1], "ms": ms,
+                                              "plain_ms": plain_ms}), flush=True)
 
 
 def device_breakdown(torch, label: str, fn, reps: int = 3, top: int = 8,
@@ -700,20 +726,21 @@ def levels_phase(torch, bda, mha) -> dict:
     check(rel <= 5e-4, f"token chain CUDA vs CPU rel err {rel:.3g} > 5e-4")
 
     chains = {}
-    for name, kwargs, num_samples in (("token", TOKEN_KWARGS, NUM_SAMPLES),
-                                      ("kv-event", KV_EVENT_KWARGS, SAMPLE_BATCH),
-                                      ("kv-macro", KV_MACRO_KWARGS, SAMPLE_BATCH)):
+    for name, kwargs, num_samples, num_steps in (
+            ("token", TOKEN_KWARGS, NUM_SAMPLES, NUM_STEPS),
+            ("kv-event", KV_EVENT_KWARGS, SAMPLE_BATCH, SHORT_CHAIN_STEPS),
+            ("kv-macro", KV_MACRO_KWARGS, SAMPLE_BATCH, SHORT_CHAIN_STEPS)):
         sampler = DiffusionSampler(model, SAMPLE_BATCH, use_cache=True, cache_kwargs=kwargs)
         gen = torch.Generator(device="cuda").manual_seed(2)
         torch.cuda.synchronize()
         bda.launches = mha.launches = 0
         t0 = time.perf_counter()
-        samples = sampler.sample(num_samples, NUM_STEPS, generator=gen)
+        samples = sampler.sample(num_samples, num_steps, generator=gen)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         b1, b4 = bda.launches, mha.launches
         stats = sampler.get_cache_stats()
-        steps = NUM_STEPS * (num_samples // SAMPLE_BATCH)
+        steps = num_steps * (num_samples // SAMPLE_BATCH)
         check(tuple(samples.shape) == (num_samples, cfg.max_len, 1),
               f"{name}: samples shape {tuple(samples.shape)}")
         check(bool(torch.isfinite(samples).all()), f"{name}: samples not finite")
@@ -873,7 +900,7 @@ def freq_options_phase(torch, bda, mha) -> dict:
         torch.cuda.synchronize()
         bda.launches = mha.launches = 0
         t0 = time.perf_counter()
-        samples = sampler.sample(SAMPLE_BATCH, NUM_STEPS, generator=gen)
+        samples = sampler.sample(SAMPLE_BATCH, SHORT_CHAIN_STEPS, generator=gen)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         b1, b4 = bda.launches, mha.launches
@@ -888,7 +915,7 @@ def freq_options_phase(torch, bda, mha) -> dict:
         check(b1 > 0, f"{name}: B1 never launched")
         state = sampler.last_cache_state
         chains[name] = dict(seconds=seconds, samples_per_s=SAMPLE_BATCH / seconds,
-                            ms_per_step=1e3 * seconds / NUM_STEPS, launches_b1=b1,
+                            ms_per_step=1e3 * seconds / SHORT_CHAIN_STEPS, launches_b1=b1,
                             launches_b4=b4, full_steps=stats["full_steps"],
                             mixed_steps=stats["mixed_steps"], cached_steps=stats["cached_steps"],
                             hist_len=int(state.hist_len), cache_stats=stats)
@@ -1343,6 +1370,218 @@ def train_phase(torch, bda) -> dict:
     return result, model, dm
 
 
+def _cli_counts(bda, mha) -> dict:
+    return dict(b1=bda.launches, b2=bda.launches_bwd, b3=bda.launches_trainable, b4=mha.launches)
+
+
+def _reset_counts(torch, bda, mha) -> None:
+    torch.cuda.synchronize()
+    bda.launches = bda.launches_bwd = bda.launches_trainable = mha.launches = 0
+
+
+def cli_phase(torch, bda, mha) -> dict:
+    """The port's entry points on the card, as a user types them: the train
+    CLI on the synthetic data at the flagship's full width (trainer
+    defaults, ``steps_per_call`` 16), resume through ``Trainer(resume=True)``
+    held bitwise to the uninterrupted run, one epoch at
+    ``accumulate_grad_batches=2``, the sample CLI uncached, at the score
+    level's operating point and at the token level's ``token_full`` arm
+    (``configs/sampler/default.yaml``: batches of 50, ``batches_per_call``
+    2), and the MLP and LSTM backbones (one train-CLI epoch each, then a
+    50-step uncached chain on their weights, CUDA against the CPU)."""
+    import numpy as np
+
+    from fdtpu_torch.cli import sample as sample_cli
+    from fdtpu_torch.cli import train as train_cli
+    from fdtpu_torch.sampling import sample_chain
+    from fdtpu_torch.train import Trainer, get_best_checkpoint, get_training_params
+    from fdtpu_torch.train import checkpoint as ckpt
+    from fdtpu_torch.utils import builders, yaml_subset
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp_name:
+        tmp = Path(tmp_name)
+        runs = tmp / "runs"
+        common = ["datamodule=synthetic", f"datamodule.data_dir={tmp / 'data'}",
+                  "fourier_transform=true", f"datamodule.max_len={TRAIN_FLAGSHIP['seq']}",
+                  f"datamodule.num_samples={TRAIN_SAMPLES}", f"run_dir={runs}"]
+
+        # Train: the flagship through the train CLI.
+        _reset_counts(torch, bda, mha)
+        t0 = time.perf_counter()
+        runner = train_cli.main(common + [f"trainer.max_epochs={TRAIN_EPOCHS}", "+run_id=flagship"])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = _cli_counts(bda, mha)
+        dm, model = runner.datamodule, runner.model
+        layers = model.config.num_layers
+        steps = TRAIN_EPOCHS * len(dm.train_dataloader())
+        val_forwards = TRAIN_EPOCHS * len(dm.val_dataloader())
+        records = [json.loads(line) for line in runner.trainer.metrics_path.read_text().splitlines()]
+        epochs = [r for r in records if "val/loss" in r]
+        line = dict(seconds=seconds, train_samples_per_s=TRAIN_EPOCHS * TRAIN_SAMPLES / seconds,
+                    epoch_seconds=[r["epoch_time_s"] for r in epochs],
+                    param_count=model.param_count(),
+                    attention_impl=model.network.backbone[0].attention_impl,
+                    losses=[(r["train/loss_epoch"], r["val/loss"]) for r in epochs],
+                    checkpoints=sorted(p.name for p in (runner.trainer.run_dir / "checkpoints")
+                                       .glob("*.ckpt")), **counts)
+        print("cli train", json.dumps(line), flush=True)
+        check(model.config.d_model == 72 and model.config.num_layers == 10
+              and model.config.n_head == 12 and model.config.dim_feedforward == 2048,
+              f"cli train: not the flagship width: {model.config}")
+        check(line["attention_impl"] == "blockdiag", "cli train: auto did not pick B1 at Dh 6")
+        check(len(epochs) == TRAIN_EPOCHS and all(
+            math.isfinite(v) for pair in line["losses"] for v in pair), "cli train: losses")
+        check(counts["b2"] == layers * steps and counts["b3"] == layers * steps,
+              f"cli train: B2/B3 launches {counts} for {steps} steps x {layers} layers")
+        check(counts["b1"] == layers * (steps + val_forwards),
+              f"cli train: {counts['b1']} B1 launches for {steps} + {val_forwards} forwards")
+        out["train"] = line
+
+        # Sample: the three variants through the sample CLI, on that run.
+        level_args = {
+            "uncached": [],
+            "score": ["use_cache=true"] + [f"+cache_kwargs.{k}={v}" for k, v in CACHE_KWARGS.items()],
+            "token": ["use_cache=true"] + [f"+cache_kwargs.{k}={v}" for k, v in TOKEN_KWARGS.items()],
+        }
+        for name, extra in level_args.items():
+            _reset_counts(torch, bda, mha)
+            t0 = time.perf_counter()
+            sampled = sample_cli.main([f"model_path={runs}", "model_id=latest",
+                                       f"num_samples={NUM_SAMPLES}",
+                                       f"num_diffusion_steps={NUM_STEPS}", *extra])
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            counts = _cli_counts(bda, mha)
+            sampler = sampled.sampler
+            batches = NUM_SAMPLES // sampler.sample_batch_size
+            n = batches * sampler.sample_batch_size
+            stats = sampler.get_cache_stats()
+            full = stats["full_steps"] if sampler.use_cache else NUM_STEPS * batches
+            topk = stats["mixed_steps"] if name == "token" else 0
+            results = yaml_subset.load(sampled.model_dir / "results.yaml")
+            scalars = {k: v for k, v in results.items() if not isinstance(v, list)}
+            samples = np.load(sampled.model_dir / "samples.npy")
+            line = dict(seconds=seconds, samples_per_s=n / seconds, samples=n,
+                        ms_per_step=1e3 * seconds / (NUM_STEPS * batches),
+                        batches_per_call=sampler.batches_per_call, full_steps=full,
+                        topk_steps=topk, steps_skipped_ratio=stats.get("steps_skipped_ratio", 0.0),
+                        metrics=scalars, **counts)
+            print(f"cli sample {name}", json.dumps(line), flush=True)
+            check(sampled.model_dir == runner.trainer.run_dir, "cli sample: not the latest run")
+            check(sampler.use_cache == (name != "uncached"), f"cli sample {name}: cache flag")
+            check(samples.shape == (n, model.config.max_len, 1) and np.isfinite(samples).all(),
+                  f"cli sample {name}: samples {samples.shape}")
+            check(all(math.isfinite(v) for v in scalars.values()), f"cli sample {name}: metrics")
+            check(counts["b1"] == layers * full,
+                  f"cli sample {name}: {counts['b1']} B1 launches for {full} full forwards")
+            check(counts["b4"] == layers * topk,
+                  f"cli sample {name}: {counts['b4']} B4 launches for {topk} TOPK steps")
+            if name == "token":
+                check(topk > 0, "cli sample token: no TOPK step")
+            out[f"sample_{name}"] = line
+
+        # Resume on the card: one epoch, then a new trainer resumes to two.
+        params = get_training_params(dm, TRAIN_EPOCHS)
+        fits = {}
+        t0 = time.perf_counter()
+        for run_id, epochs_, resume in (("straight", TRAIN_EPOCHS, False), ("part", 1, False),
+                                        ("part", TRAIN_EPOCHS, True)):
+            trainer = Trainer(max_epochs=epochs_, run_dir=tmp / "resume", run_id=run_id,
+                              seed=42, log_every_n_steps=1, resume=resume)
+            fitted = trainer.fit(builders.build_model(runner.cfg, params, device="cuda"), dm)
+            fits[run_id] = (fitted, trainer)
+        torch.cuda.synchronize()
+        (m_full, t_full), (m_part, t_part) = fits["straight"], fits["part"]
+
+        def step_records(trainer):
+            return [{k: v for k, v in json.loads(r).items() if k != "epoch_time_s"}
+                    for r in trainer.metrics_path.read_text().splitlines()]
+
+        s_full, meta_full = ckpt.load_train_state(t_full.run_dir)
+        s_part, meta_part = ckpt.load_train_state(t_part.run_dir)
+        same_state = all(torch.equal(a, b) for a, b in zip(
+            [s_full["network"][k] for k in s_full["network"]] + s_full["optimizer"]["mu"]
+            + s_full["optimizer"]["nu"] + [s_full["optimizer"]["updates"], s_full["generator"]],
+            [s_part["network"][k] for k in s_full["network"]] + s_part["optimizer"]["mu"]
+            + s_part["optimizer"]["nu"] + [s_part["optimizer"]["updates"], s_part["generator"]]))
+        same_best = all(torch.equal(a, b) for a, b in zip(
+            m_full.network.state_dict().values(), m_part.network.state_dict().values()))
+        line = dict(seconds=time.perf_counter() - t0,
+                    records_equal=step_records(t_full) == step_records(t_part),
+                    step_losses=sum("train/loss" in r for r in step_records(t_full)),
+                    state_bitwise=same_state, best_network_bitwise=same_best,
+                    meta=(meta_full, meta_part))
+        print("cli resume", json.dumps(line), flush=True)
+        check(line["records_equal"] and line["step_losses"] == steps,
+              "cli resume: losses or rates differ from the uninterrupted run")
+        check(same_state and same_best and meta_full == meta_part,
+              "cli resume: parameters, optimizer or generator differ from the uninterrupted run")
+        out["resume"] = line
+
+        # Accumulation: one CLI epoch at two micro-batches an update.
+        _reset_counts(torch, bda, mha)
+        t0 = time.perf_counter()
+        acc = train_cli.main(common + ["trainer.max_epochs=1", "trainer.accumulate_grad_batches=2",
+                                       "+run_id=accumulate"])
+        torch.cuda.synchronize()
+        counts = _cli_counts(bda, mha)
+        steps1 = len(dm.train_dataloader())
+        (epoch,) = [json.loads(r) for r in acc.trainer.metrics_path.read_text().splitlines()
+                    if "val/loss" in r]
+        line = dict(seconds=time.perf_counter() - t0,
+                    num_training_steps=acc.model.num_training_steps,
+                    train_loss=epoch["train/loss_epoch"], val_loss=epoch["val/loss"],
+                    lr=epoch["lr"], **counts)
+        print("cli accumulate", json.dumps(line), flush=True)
+        check(acc.model.num_training_steps == steps1 // 2, "cli accumulate: schedule length")
+        check(math.isfinite(line["train_loss"]) and math.isfinite(line["val_loss"]),
+              "cli accumulate: loss not finite")
+        check(counts["b2"] == layers * steps1, f"cli accumulate: {counts['b2']} B2 launches")
+        out["accumulate"] = line
+
+        # MLP and LSTM: a train-CLI epoch, then 50 steps CUDA against the CPU.
+        for backbone in ("mlp", "lstm"):
+            _reset_counts(torch, bda, mha)
+            t0 = time.perf_counter()
+            trained = train_cli.main([*common, f"score_model={backbone}", "trainer.max_epochs=1",
+                                      f"run_dir={tmp / backbone}"])
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            counts = _cli_counts(bda, mha)
+            best = get_best_checkpoint(trained.trainer.run_dir / "checkpoints")
+            on_card = ckpt.load_checkpoint(best)
+            on_cpu = ckpt.load_checkpoint(best, device="cpu")
+            cfg = on_card.config
+            g = torch.Generator(device="cuda").manual_seed(16)
+            n_short, b_short = 50, 4
+            z = torch.randn((n_short + 1, b_short, cfg.max_len, 1), generator=g, device="cuda")
+            chains = {}
+            for dev, m in (("cuda", on_card), ("cpu", on_cpu)):
+                x0 = m.scheduler.prior_sampling((b_short, cfg.max_len, 1), noise=z[0].to(dev))
+                t1 = time.perf_counter()
+                x, _ = sample_chain(m.network, m.scheduler, x0, num_steps=n_short,
+                                    step_noise=z[1:].to(dev))
+                chains[dev] = (x.cpu(), time.perf_counter() - t1)
+            rel = rel_err(chains["cuda"][0], chains["cpu"][0])
+            line = dict(train_seconds=seconds,
+                        train_samples_per_s=TRAIN_SAMPLES / seconds,
+                        param_count=on_card.param_count(), d_model=cfg.d_model,
+                        num_layers=cfg.num_layers, d_mlp=cfg.d_mlp,
+                        chain_seconds={k: v[1] for k, v in chains.items()},
+                        max_rel_err=rel, **counts)
+            print(f"cli {backbone}", json.dumps(line), flush=True)
+            check(cfg.backbone == backbone, f"cli {backbone}: built {cfg.backbone}")
+            check(all(v == 0 for v in counts.values()), f"cli {backbone}: a kernel ran: {counts}")
+            check(bool(torch.isfinite(chains["cuda"][0]).all()), f"cli {backbone}: not finite")
+            # Tolerance: 1e-4 relative, as the transformer's uncached short
+            # chain (slice phase): the card and the CPU sum in other orders.
+            check(rel <= 1e-4, f"cli {backbone}: 50-step chain CUDA vs CPU rel err {rel:.3g}")
+            out[backbone] = line
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1386,6 +1625,9 @@ def main() -> int:
     graphed = timed("graphs", graphs_phase, torch, bda, mha)
     train, trained, dm = timed("train", train_phase, torch, bda)
     evaluation = timed("eval", eval_phase, torch, bda, trained, dm)
+    cli = timed("cli", cli_phase, torch, bda, mha)
+    cli_runs = [cli["train"], cli["accumulate"]] + [cli[f"sample_{name}"]
+                                                    for name in ("uncached", "score", "token")]
     level_chains = [c for c in levels.values() if isinstance(c, dict)]
     level_chains += list(freq_chains.values())
     level_chains += [run for name, line in graphed.items() if name != "train"
@@ -1411,18 +1653,20 @@ def main() -> int:
         kernel_record("blockdiag_mha", "fdtpu_torch/kernels/csrc/blockdiag_attention.cu",
                       "fdtpu/kernels/blockdiag_attention.py:221",
                       sum(c["launches"] for c in chains.values()) + train["launches"]
-                      + sum(c["launches_b1"] for c in level_chains) + evaluation["launches"],
-                      kernel_results),
+                      + sum(c["launches_b1"] for c in level_chains) + evaluation["launches"]
+                      + sum(c["b1"] for c in cli_runs), kernel_results),
         kernel_record("fused_mha", "fdtpu_torch/kernels/csrc/fused_attention.cu",
                       "fdtpu/kernels/attention.py:80",
-                      sum(c["launches_b4"] for c in level_chains), mha_results),
+                      sum(c["launches_b4"] for c in level_chains) + sum(c["b4"] for c in cli_runs),
+                      mha_results),
         kernel_record("blockdiag_mha_bwd", "fdtpu_torch/kernels/csrc/blockdiag_attention_bwd.cu",
-                      "fdtpu/kernels/blockdiag_attention.py:373", train["launches_bwd"],
-                      bwd_results),
+                      "fdtpu/kernels/blockdiag_attention.py:373",
+                      train["launches_bwd"] + sum(c["b2"] for c in cli_runs), bwd_results),
         {"name": "blockdiag_mha_trainable", "route": "autograd.Function",
          "source": "fdtpu_torch/kernels/blockdiag_attention.py",
          "replaces": "fdtpu/kernels/blockdiag_attention.py:410",
-         "launches": train["launches_trainable"], "max_abs_err": trainable["max_abs_err"],
+         "launches": train["launches_trainable"] + sum(c["b3"] for c in cli_runs),
+         "max_abs_err": trainable["max_abs_err"],
          "ms": trainable["ms"], "plain_ms": trainable["plain_ms"],
          "bound_ms": trainable["bound_ms"], "bound_by": trainable["bound_by"],
          "library_ms": trainable["library_ms"]},

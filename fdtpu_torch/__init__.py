@@ -9,10 +9,15 @@ nor ``fdtpu``; only the tests import both.
 Entry points run on CUDA unless the caller passes ``device="cpu"``
 (:func:`fdtpu_torch.utils.device.resolve_device`).
 
-Ported so far (the serving path): spectral ops, VP/VE schedulers, the
-transformer score model with the block-diagonal attention kernel, the
-score-level E²-CRF cache, the reverse Euler–Maruyama sampler, and the
-synthetic datamodule.  What is still to port is listed in ROADMAP.md.
+Ported so far: spectral ops, FreqCa and FreSca, VP/VE schedulers, the
+transformer (with the hand-written attention kernels), MLP and LSTM score
+networks, the E²-CRF cache at the score, token and KV levels, the reverse
+Euler–Maruyama sampler (grouped batches as CUDA graphs), τ₀ calibration, the
+Wasserstein metrics, training (gradient accumulation, checkpoints, exact
+resume, callbacks, optional wandb), config composition and the train and
+sample CLIs (``python -m fdtpu_torch.cli.train`` / ``.sample``, on the card
+unless ``+device=cpu``), and the synthetic datamodule.  What is still to port
+is listed in ROADMAP.md.
 """
 
 __version__ = "0.1.0"

@@ -17,7 +17,7 @@ import json
 import logging
 import os
 from pathlib import Path
-from typing import Any
+from typing import Any, Optional
 
 import numpy as np
 
@@ -95,7 +95,9 @@ class SyntheticDatamodule:
         np.save(self.data_dir / "train.npy", x[: self.num_samples])
         np.save(self.data_dir / "test.npy", x[self.num_samples:])
 
-    def setup(self) -> None:
+    def setup(self, stage: Optional[str] = None) -> None:
+        """Load the splits (``stage`` is accepted for the JAX datamodule's
+        interface; every stage loads both)."""
         self.X_train = np.load(self.data_dir / "train.npy")
         self.X_test = np.load(self.data_dir / "test.npy")
 

@@ -1,4 +1,6 @@
 from fdtpu_torch.models.score_models import (
+    LSTMScoreNetwork,
+    MLPScoreNetwork,
     ScoreModel,
     ScoreModelConfig,
     ScoreNetwork,
@@ -15,6 +17,8 @@ __all__ = [
     "MODE_CACHED",
     "MODE_FULL",
     "MODE_MIXED",
+    "LSTMScoreNetwork",
+    "MLPScoreNetwork",
     "ScoreModel",
     "ScoreModelConfig",
     "ScoreNetwork",

@@ -1,24 +1,29 @@
-"""Transformer score network (port of
-``fdtpu/models/score_models.py:50-273, 345-535``).
+"""Score networks: the transformer, MLP and LSTM backbones (port of
+``fdtpu/models/score_models.py``).
 
-Pipeline: Linear(C→D) embed → learnable positional encoding (max-norm √d) →
-Gaussian-Fourier time encoding → post-norm encoder stack → Linear(D→C)
-unembed.  Config defaults follow the flagship (d_model 72, 10 layers, 12
-heads, ≈3.2M parameters).
+Transformer pipeline: Linear(C→D) embed → learnable positional encoding
+(max-norm √d) → Gaussian-Fourier time encoding → post-norm encoder stack →
+Linear(D→C) unembed.  Config defaults follow the flagship (d_model 72, 10
+layers, 12 heads, ≈3.2M parameters).  The MLP backbone
+(:class:`MLPScoreNetwork`) embeds the flattened series, adds the time
+encoding and runs residual Linear→ReLU→Dropout→Linear→Dropout blocks; the
+LSTM backbone (:class:`LSTMScoreNetwork`) runs residual one-directional LSTM
+layers over the tokens with no positional encoding and no dropout, as the
+JAX package's.
 
-The JAX package's ``variables`` pytree becomes the :class:`ScoreNetwork`
-module; ``init_score_model`` builds it from an explicit ``torch.Generator``
-on the requested device (CUDA unless ``device="cpu"``), frozen for
-sampling.  ``forward(x, t, train=True, generator=g)`` is the training
-forward, with dropout drawn from ``g`` (the trainer,
-:mod:`fdtpu_torch.train.trainer`, makes its own trainable copy).
+The JAX package's ``variables`` pytree becomes the network module;
+``init_score_model`` builds it from an explicit ``torch.Generator`` on the
+requested device (CUDA unless ``device="cpu"``), frozen for sampling.
+``forward(x, t, train=True, generator=g)`` is the training forward, with
+dropout drawn from ``g`` (the trainer, :mod:`fdtpu_torch.train.trainer`,
+makes its own trainable copy).
 
 The E²-CRF cache's forwards, :func:`score_apply_cached` (KV level, and the
 token level's full refreshes) and :func:`score_apply_topk` (token level),
 take the K/V store ``(k, v)``, each ``(num_layers, B, T, H, Dh)`` in the
 compute dtype, and update it in place; the JAX package's ``lax.switch`` over
-the mode becomes a branch on a host int.  The MLP/LSTM backbones are still to
-port (ROADMAP.md).
+the mode becomes a branch on a host int.  They apply to the transformer only,
+as in the JAX package.
 """
 
 from __future__ import annotations
@@ -32,9 +37,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from fdtpu_torch.kernels.blockdiag_attention import MAX_HEAD_DIM
 from fdtpu_torch.models.encodings import GaussianFourierProjection, PositionalEncoding
 from fdtpu_torch.models.initializers import linear_init_, max_norm_rows
-from fdtpu_torch.models.transformer import EncoderLayer, KVStore
+from fdtpu_torch.models.transformer import EncoderLayer, KVStore, _dropout
 from fdtpu_torch.utils.device import DeviceLike, resolve_device
 
 
@@ -70,19 +76,49 @@ class ScoreModelConfig:
 
 
 def resolve_attention_impl(impl: str, head_dim: int = 0, device_type: str = "cuda") -> str:
-    """Resolve ``"auto"``: the fused kernel on CUDA when heads are tiny
-    (head_dim < 16), einsum otherwise and always on the CPU.
+    """Resolve ``"auto"``: the hand-written kernels on CUDA for every head_dim
+    they take (up to ``MAX_HEAD_DIM``, 32), einsum past that and always on
+    the CPU.
 
-    The head_dim < 16 crossover was measured on a TPU for the TPU kernel; on
-    the H100 it is still to be settled by measurement (ROADMAP.md)."""
+    Measured on the H100 (``chip_smoke.py`` ``head_dim_sweep``, PERF.md §6):
+    B1 against the plain attention at B 128, T 187, 12 heads, float32, is
+    0.054 against 0.58 ms at head_dim 4 and 0.46 against 0.77 at 32; B2
+    against the plain backward 0.13 against 0.95 and 0.97 against 1.15.  The
+    JAX package's head_dim < 16 crossover is a TPU measurement."""
     if impl == "auto":
-        if device_type != "cuda" or head_dim >= 16:
+        if device_type != "cuda" or head_dim > MAX_HEAD_DIM:
             return "einsum"
         return "blockdiag"
     return impl
 
 
-class ScoreNetwork(nn.Module):
+class _Network(nn.Module):
+    """What the three backbones share: the input check, the unembedding and
+    the compute-dtype copy."""
+
+    config: ScoreModelConfig
+
+    def _check_input(self, x: torch.Tensor) -> None:
+        cfg = self.config
+        if tuple(x.shape[1:]) != (cfg.max_len, cfg.n_channels):
+            raise ValueError(
+                f"X has wrong shape, expected (*, {cfg.max_len}, {cfg.n_channels}), "
+                f"got {tuple(x.shape)}"
+            )
+
+    def _unembed(self, h: torch.Tensor, out_dtype: torch.dtype) -> torch.Tensor:
+        w, b = self.unembedder.weight.to(h.dtype), self.unembedder.bias.to(h.dtype)
+        return F.linear(h, w, b).to(out_dtype)
+
+    def compute_copy(self) -> "_Network":
+        """The network with every parameter and buffer in the compute dtype —
+        cast once before a sampling chain rather than in every step."""
+        if self.config._cdtype == torch.float32:
+            return self
+        return copy.deepcopy(self).to(self.config._cdtype)
+
+
+class ScoreNetwork(_Network):
     """The transformer score network; ``forward(x, t)`` is ``score_apply``."""
 
     def __init__(self, config: ScoreModelConfig, attention_impl: str) -> None:
@@ -106,18 +142,6 @@ class ScoreNetwork(nn.Module):
         self.time_encoder.reset_parameters(generator)
         for layer in self.backbone:
             layer.reset_parameters(generator)
-
-    def _check_input(self, x: torch.Tensor) -> None:
-        cfg = self.config
-        if tuple(x.shape[1:]) != (cfg.max_len, cfg.n_channels):
-            raise ValueError(
-                f"X has wrong shape, expected (*, {cfg.max_len}, {cfg.n_channels}), "
-                f"got {tuple(x.shape)}"
-            )
-
-    def _unembed(self, h: torch.Tensor, out_dtype: torch.dtype) -> torch.Tensor:
-        w, b = self.unembedder.weight.to(h.dtype), self.unembedder.bias.to(h.dtype)
-        return F.linear(h, w, b).to(out_dtype)
 
     def forward(
         self,
@@ -190,36 +214,153 @@ class ScoreNetwork(nn.Module):
             h = layer.forward_topk(h, (k, v), idx)
         return self._unembed(h, out_dtype)
 
-    def compute_copy(self) -> "ScoreNetwork":
-        """The network with every parameter and buffer in the compute dtype —
-        cast once before a sampling chain rather than in every step."""
-        if self.config._cdtype == torch.float32:
-            return self
-        return copy.deepcopy(self).to(self.config._cdtype)
+
+class MLPBlock(nn.Module):
+    def __init__(self, d_model: int, d_mlp: int) -> None:
+        super().__init__()
+        self.linear1 = nn.utils.skip_init(nn.Linear, d_model, d_mlp)
+        self.linear2 = nn.utils.skip_init(nn.Linear, d_mlp, d_model)
+
+
+class MLPScoreNetwork(_Network):
+    """The MLP backbone (``fdtpu/models/score_models.py:276-309``): the
+    flattened (T·C) series embedded to d_model, the time encoding added, then
+    residual blocks ``h + Drop(Linear(Drop(ReLU(Linear(h)))))`` (two dropout
+    masks a block, drawn in that order), unembedded back to (T, C)."""
+
+    def __init__(self, config: ScoreModelConfig) -> None:
+        super().__init__()
+        cfg = self.config = config
+        flat = cfg.max_len * cfg.n_channels
+        self.embedder = nn.utils.skip_init(nn.Linear, flat, cfg.d_model)
+        self.time_encoder = GaussianFourierProjection(cfg.d_model, cfg.gfp_scale)
+        self.backbone = nn.ModuleList(MLPBlock(cfg.d_model, cfg.d_mlp)
+                                      for _ in range(cfg.num_layers))
+        self.unembedder = nn.utils.skip_init(nn.Linear, cfg.d_model, flat)
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
+        linear_init_(self.embedder, generator)
+        linear_init_(self.unembedder, generator)
+        self.time_encoder.reset_parameters(generator)
+        for block in self.backbone:
+            linear_init_(block.linear1, generator)
+            linear_init_(block.linear2, generator)
+
+    def forward(self, x: torch.Tensor, timesteps: torch.Tensor, train: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        self._check_input(x)
+        cfg = self.config
+        b = x.shape[0]
+        h = x.to(cfg._cdtype).reshape(b, cfg.max_len * cfg.n_channels)
+        h = F.linear(h, self.embedder.weight.to(h.dtype), self.embedder.bias.to(h.dtype))
+        h = self.time_encoder(h, timesteps.to(h.dtype), use_time_axis=False)
+        for block in self.backbone:
+            y = torch.relu(F.linear(h, block.linear1.weight.to(h.dtype),
+                                    block.linear1.bias.to(h.dtype)))
+            y = _dropout(y, cfg.dropout, train, generator)
+            y = F.linear(y, block.linear2.weight.to(h.dtype), block.linear2.bias.to(h.dtype))
+            h = h + _dropout(y, cfg.dropout, train, generator)
+        return self._unembed(h, x.dtype).reshape(b, cfg.max_len, cfg.n_channels)
+
+
+class LSTMLayer(nn.Module):
+    """One one-directional LSTM layer over (B, T, D), torch's gate order
+    (i, f, g, o) and weight layout ``(4D, D)``, as an explicit loop over the
+    tokens (``_lstm_layer``, ``fdtpu/models/score_models.py:312-333``): the
+    input projection of every token in one product, then per token the
+    recurrent product and the gates."""
+
+    def __init__(self, d_model: int) -> None:
+        super().__init__()
+        self.w_ih = nn.Parameter(torch.empty(4 * d_model, d_model))
+        self.w_hh = nn.Parameter(torch.empty(4 * d_model, d_model))
+        self.b_ih = nn.Parameter(torch.empty(4 * d_model))
+        self.b_hh = nn.Parameter(torch.empty(4 * d_model))
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
+        """torch's LSTM default: every weight and bias U(±1/√D)."""
+        bound = 1.0 / math.sqrt(self.w_hh.shape[1])
+        for p in (self.w_ih, self.w_hh, self.b_ih, self.b_hh):
+            p.uniform_(-bound, bound, generator=generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b, t, d = x.shape
+        pre = F.linear(x, self.w_ih.to(x.dtype), self.b_ih.to(x.dtype))
+        w_hh_t, b_hh = self.w_hh.to(x.dtype).t(), self.b_hh.to(x.dtype)
+        h = x.new_zeros((b, d))
+        c = x.new_zeros((b, d))
+        out = []
+        for s in range(t):
+            gates = pre[:, s] + torch.addmm(b_hh, h, w_hh_t)
+            i, f, g, o = gates.chunk(4, dim=1)
+            c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
+            h = torch.sigmoid(o) * torch.tanh(c)
+            out.append(h)
+        return torch.stack(out, dim=1)
+
+
+class LSTMScoreNetwork(_Network):
+    """The LSTM backbone (``fdtpu/models/score_models.py:336-341``): Linear
+    embed, the time encoding, residual LSTM layers ``h + LSTM(h)``, Linear
+    unembed; no positional encoding, no dropout."""
+
+    def __init__(self, config: ScoreModelConfig) -> None:
+        super().__init__()
+        cfg = self.config = config
+        self.embedder = nn.utils.skip_init(nn.Linear, cfg.n_channels, cfg.d_model)
+        self.time_encoder = GaussianFourierProjection(cfg.d_model, cfg.gfp_scale)
+        self.backbone = nn.ModuleList(LSTMLayer(cfg.d_model) for _ in range(cfg.num_layers))
+        self.unembedder = nn.utils.skip_init(nn.Linear, cfg.d_model, cfg.n_channels)
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
+        linear_init_(self.embedder, generator)
+        linear_init_(self.unembedder, generator)
+        self.time_encoder.reset_parameters(generator)
+        for layer in self.backbone:
+            layer.reset_parameters(generator)
+
+    def forward(self, x: torch.Tensor, timesteps: torch.Tensor, train: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        self._check_input(x)
+        h = x.to(self.config._cdtype)
+        h = F.linear(h, self.embedder.weight.to(h.dtype), self.embedder.bias.to(h.dtype))
+        h = self.time_encoder(h, timesteps.to(h.dtype))
+        for layer in self.backbone:
+            h = h + layer(h)
+        return self._unembed(h, x.dtype)
 
 
 def init_score_model(
     cfg: ScoreModelConfig,
     generator: Optional[torch.Generator] = None,
     device: DeviceLike = None,
-) -> ScoreNetwork:
-    """Initialize a transformer score network with torch-default
+) -> _Network:
+    """Initialize the score network of ``cfg.backbone`` with torch-default
     distributions drawn from ``generator`` (on the CPU, so a seed gives the
     same weights on every device), then move it to ``device``."""
-    if cfg.backbone != "transformer":
-        raise NotImplementedError(
-            f"backbone={cfg.backbone!r}: the MLP/LSTM backbones are not ported "
-            "yet (ROADMAP.md, MLP and LSTM backbones)"
-        )
     dev = resolve_device(device)
-    impl = resolve_attention_impl(cfg.attention_impl, cfg.head_dim, dev.type)
-    net = ScoreNetwork(cfg, impl)
+    if cfg.backbone == "transformer":
+        impl = resolve_attention_impl(cfg.attention_impl, cfg.head_dim, dev.type)
+        net: _Network = ScoreNetwork(cfg, impl)
+    elif cfg.backbone == "mlp":
+        net = MLPScoreNetwork(cfg)
+    elif cfg.backbone == "lstm":
+        net = LSTMScoreNetwork(cfg)
+    else:
+        raise ValueError(f"backbone must be transformer, mlp or lstm, got {cfg.backbone!r}")
     net.reset_parameters(generator)
     return net.to(dev).eval().requires_grad_(False)
 
 
+def _check_transformer(network: _Network, what: str) -> None:
+    if network.config.backbone != "transformer":
+        raise ValueError(f"{what} applies to the transformer backbone, not "
+                         f"{network.config.backbone!r}")
+
+
 def score_apply(
-    network: ScoreNetwork,
+    network: _Network,
     x: torch.Tensor,
     timesteps: torch.Tensor,
     train: bool = False,
@@ -245,6 +386,7 @@ def score_apply_cached(
     MODE_CACHED.  MODE_FULL keeps the network's ``attention_impl`` (B1 under
     ``"blockdiag"``); MIXED and CACHED attend through B4 under a kernel
     implementation.  Returns ``(score, kv_cache, crf)``."""
+    _check_transformer(network, "KV caching")
     score, crf = network.forward_cached(x, timesteps, kv_cache, recompute_mask, mode)
     return score, kv_cache, crf
 
@@ -260,6 +402,7 @@ def score_apply_topk(
     recompute only the ``idx`` (k,) token rows, shared across the batch,
     scattering their fresh K/V into ``kv_cache`` in place.  Returns
     ``(out_rows, kv_cache)`` with out_rows ``(B, k, C)``."""
+    _check_transformer(network, "token caching")
     return network.forward_topk(x, timesteps, kv_cache, idx), kv_cache
 
 
@@ -273,7 +416,7 @@ class ScoreModel:
     ``ScoreModel`` dataclass."""
 
     config: ScoreModelConfig
-    network: ScoreNetwork
+    network: _Network
     scheduler: Any  # fdtpu_torch.diffusion.sde.SDE
     num_training_steps: int = 1000
     lr_max: float = 1e-3

@@ -10,6 +10,13 @@ step and decays every parameter, as ``optax.adamw`` does with no mask.  The
 learning rate of update ``k`` (counting from 0) is ``schedule(k)``, as optax
 evaluates its schedule at the count of updates before this one, so the
 first update moves nothing.
+
+With ``accumulate_grad_batches`` k > 1 the optimizer is ``optax.MultiSteps``
+(``fdtpu/train/state.py:52-66``): each micro-step folds its gradients into a
+running mean (``acc + (g − acc) / (n + 1)``, optax's Welford form), and every
+k-th micro-step clips the mean, takes the AdamW step and advances the
+schedule once.  The micro-step count carries on across epochs, as
+MultiSteps' does.
 """
 
 from __future__ import annotations
@@ -73,7 +80,13 @@ class ClippedAdamW:
     is entry k of a float32 table of ``schedule`` on the parameters' device
     (``schedule`` is constant from entry ``horizon - 1`` on), the update count
     is a device tensor, so a step can be captured into a CUDA graph and
-    replayed, and an eager step runs the same arithmetic."""
+    replayed, and an eager step runs the same arithmetic.
+
+    ``accumulate_grad_batches`` k > 1 (module docstring): :meth:`update`
+    folds the gradients into the running mean, and on the micro-step that
+    :attr:`emits` also updates from that mean.  The host knows which
+    micro-step comes next (:attr:`mini_step`), so a captured step graph is
+    keyed on :attr:`emits`; the mean's divisor is a device count."""
 
     def __init__(
         self,
@@ -82,38 +95,67 @@ class ClippedAdamW:
         gradient_clip_val: float = 1.0,
         weight_decay: float = 0.01,
         horizon: int = 1,
+        accumulate_grad_batches: int = 1,
     ) -> None:
         self.params = [p for p in params if p.requires_grad]
         self.schedule = schedule
         self.gradient_clip_val = gradient_clip_val
         self.weight_decay = weight_decay
+        self.accumulate_grad_batches = max(1, int(accumulate_grad_batches))
         self.count = 0
+        self.mini_step = 0
         device = self.params[0].device
         self.rates = torch.tensor([schedule(k) for k in range(max(1, horizon))],
                                   dtype=torch.float32, device=device)
         self.updates = torch.zeros((), dtype=torch.int64, device=device)
         self.mu = [torch.zeros_like(p) for p in self.params]
         self.nu = [torch.zeros_like(p) for p in self.params]
+        if self.accumulate_grad_batches > 1:
+            self.acc = [torch.zeros_like(p) for p in self.params]
+            self.acc_count = torch.zeros((), dtype=torch.float32, device=device)
 
     @property
     def lr(self) -> float:
         """The rate of the next update."""
         return self.schedule(self.count)
 
+    @property
+    def emits(self) -> bool:
+        """Whether the next micro-step ends with an update."""
+        return self.mini_step == self.accumulate_grad_batches - 1
+
     def zero_grad(self) -> None:
         for p in self.params:
             p.grad = None
 
     def step(self) -> None:
-        """One update (:meth:`update`) and the schedule's host count."""
+        """One micro-step (:meth:`update`) and the host counts
+        (:meth:`advance`)."""
         self.update()
-        self.count += 1
+        self.advance()
+
+    def advance(self) -> None:
+        """The host counts after a micro-step: the micro-step index, and the
+        schedule's count where it updated."""
+        if self.emits:
+            self.count += 1
+            self.mini_step = 0
+        else:
+            self.mini_step += 1
 
     @torch.no_grad()
     def update(self) -> None:
-        """The update on the device alone: what a captured graph replays
-        (the caller then advances :attr:`count`)."""
+        """The micro-step on the device alone: what a captured graph replays
+        (the caller then calls :meth:`advance`)."""
         grads = [p.grad for p in self.params]
+        if self.accumulate_grad_batches > 1:
+            delta = torch._foreach_sub(grads, self.acc)
+            torch._foreach_div_(delta, self.acc_count + 1.0)
+            torch._foreach_add_(self.acc, delta)
+            self.acc_count.add_(1.0)
+            if not self.emits:
+                return
+            grads = self.acc
         clip_by_global_norm_(grads, self.gradient_clip_val)
         b1, b2 = ADAM_BETAS
         last = self.rates.shape[0] - 1
@@ -132,6 +174,30 @@ class ClippedAdamW:
         torch._foreach_add_(update, self.params, alpha=self.weight_decay)
         torch._foreach_mul_(update, -lr)
         torch._foreach_add_(self.params, update)
+        if self.accumulate_grad_batches > 1:
+            torch._foreach_zero_(self.acc)
+            self.acc_count.zero_()
+
+    def state_dict(self) -> dict:
+        """The optimizer's state: moments, counts and the accumulated mean."""
+        state = {"count": self.count, "mini_step": self.mini_step, "updates": self.updates,
+                 "mu": self.mu, "nu": self.nu}
+        if self.accumulate_grad_batches > 1:
+            state.update(acc=self.acc, acc_count=self.acc_count)
+        return state
+
+    @torch.no_grad()
+    def load_state_dict(self, state: dict) -> None:
+        """Restore :meth:`state_dict` in place (the tensors keep their
+        addresses, which captured graphs hold)."""
+        self.count, self.mini_step = int(state["count"]), int(state["mini_step"])
+        self.updates.copy_(state["updates"])
+        names = ["mu", "nu"] + (["acc"] if self.accumulate_grad_batches > 1 else [])
+        for name in names:
+            for dst, src in zip(getattr(self, name), state[name], strict=True):
+                dst.copy_(src)
+        if self.accumulate_grad_batches > 1:
+            self.acc_count.copy_(state["acc_count"])
 
 
 def make_optimizer(
@@ -141,9 +207,12 @@ def make_optimizer(
     num_warmup_steps: Optional[int] = None,
     gradient_clip_val: float = 1.0,
     weight_decay: float = 0.01,
+    accumulate_grad_batches: int = 1,
 ) -> ClippedAdamW:
-    """AdamW + warmup-cosine + global-norm clipping over ``params``."""
+    """AdamW + warmup-cosine + global-norm clipping over ``params``, one
+    update every ``accumulate_grad_batches`` micro-steps."""
     schedule = make_lr_schedule(lr_max, num_training_steps, num_warmup_steps)
     # The schedule is constant (0) from step max(2, num_training_steps) on.
     return ClippedAdamW(params, schedule, gradient_clip_val, weight_decay,
-                        horizon=max(2, num_training_steps) + 1)
+                        horizon=max(2, num_training_steps) + 1,
+                        accumulate_grad_batches=accumulate_grad_batches)

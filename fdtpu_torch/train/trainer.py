@@ -1,12 +1,20 @@
 """Training loop of the port (the host loop of ``fdtpu/train/trainer.py:55-463``).
 
 One step is DSM loss → backward → global-norm clip → AdamW → schedule step
-(:func:`train_step`).  Every epoch ends with the val loss in eval mode,
-averaged with batch-size weights, and best-val tracking: the model handed
-back holds the parameters of the best val epoch (the last epoch's when no
-val loss was finite), frozen for sampling.  Each epoch and every
-``log_every_n_steps`` steps append a record to ``run_dir/run_id/metrics.jsonl``
-with the JAX trainer's keys.
+(:func:`train_step`); with ``accumulate_grad_batches`` k the update comes
+every k-th micro-step from the mean of k gradients (``optax.MultiSteps``,
+:mod:`fdtpu_torch.train.state`).  Every epoch ends with the val loss in eval
+mode, averaged with batch-size weights, and best-val tracking: each
+improvement writes a checkpoint (:mod:`fdtpu_torch.train.checkpoint`), and
+the model handed back holds the parameters of the best val epoch (the last
+epoch's when no val loss was finite), frozen for sampling.  Each epoch and
+every ``log_every_n_steps`` steps append a record to
+``run_dir/run_id/metrics.jsonl`` with the JAX trainer's keys (and to wandb
+when a run is active, :mod:`fdtpu_torch.utils.wandb`).  Then the resume
+snapshot is written (``save_resume_state``) and each callback's
+``on_train_epoch_end(trainer=, network=, epoch=)`` runs.  ``resume=True``
+restores the snapshot of ``run_dir/run_id`` and continues the run as it
+would have gone on uninterrupted.
 
 Every random draw (t, z and the dropout masks) comes from one
 ``torch.Generator`` seeded with ``Trainer.seed`` on the network's device; the
@@ -15,13 +23,14 @@ loop runs where the caller's network lives (the card unless it is on the CPU).
 same-shape steps per call of :class:`GraphedSteps`: replays of a captured
 step graph on the card, the same steps run directly on the CPU; the odd-sized
 last batch of an epoch has a graph of its own.  Not ported here
-(ROADMAP.md): the mesh, gradient accumulation, resume, checkpoint files,
-callbacks, wandb and the device-resident epoch loop (``epochs_per_call``).
+(ROADMAP.md): the dp×tp mesh (one device only) and the device-resident epoch
+loop (``epochs_per_call``).
 """
 
 from __future__ import annotations
 
 import copy
+import dataclasses
 import json
 import logging
 import time
@@ -34,16 +43,23 @@ import torch
 from fdtpu_torch.diffusion.losses import sde_loss
 from fdtpu_torch.diffusion.sde import SDE
 from fdtpu_torch.models.score_models import ScoreModel, ScoreNetwork
+from fdtpu_torch.train import checkpoint
 from fdtpu_torch.train.state import ClippedAdamW, make_optimizer
+from fdtpu_torch.utils import wandb
 from fdtpu_torch.utils.device import module_device
 from fdtpu_torch.utils.graphs import GraphRunner
 
 
-def get_training_params(datamodule: Any, max_epochs: int) -> dict[str, Any]:
+def get_training_params(
+    datamodule: Any, max_epochs: int, accumulate_grad_batches: int = 1
+) -> dict[str, Any]:
     """Dataset-derived model kwargs: ``n_channels``, ``max_len`` and
-    ``num_training_steps`` = batches per epoch × ``max_epochs``."""
+    ``num_training_steps`` = batches per epoch × ``max_epochs`` /
+    ``accumulate_grad_batches`` (the optimizer updates)."""
     params = dict(datamodule.dataset_parameters)
-    params["num_training_steps"] = int(params["num_training_steps"] * max_epochs)
+    params["num_training_steps"] = int(
+        params["num_training_steps"] * max_epochs / accumulate_grad_batches
+    )
     return params
 
 
@@ -55,10 +71,11 @@ def train_step(
     generator: torch.Generator,
     likelihood_weighting: bool = False,
 ) -> torch.Tensor:
-    """One optimizer step on ``batch``; returns the loss (not synced)."""
+    """One optimizer micro-step on ``batch``; returns the loss (not
+    synced)."""
     loss = _loss_and_update(network, optimizer, scheduler, batch, generator,
                             likelihood_weighting)
-    optimizer.count += 1
+    optimizer.advance()
     return loss
 
 
@@ -86,7 +103,9 @@ def group_same_shape(batches: list, cap: int):
 
 class GraphedSteps:
     """Consecutive optimizer steps as replays of one captured step graph per
-    batch shape (``steps_per_call``; the JAX package's ``train_steps_scan``).
+    batch shape (``steps_per_call``; the JAX package's ``train_steps_scan``),
+    two under gradient accumulation: the micro-step that only accumulates
+    and the one that also updates (:attr:`ClippedAdamW.emits`).
 
     A group of up to ``capacity`` same-shape batches is copied to the device
     at once into a static buffer; each replay takes batch ``j`` of it (a
@@ -126,8 +145,9 @@ class GraphedSteps:
         chunk[:n].copy_(torch.from_numpy(np.stack(batches)))
         j.zero_()
         for _ in range(n):
-            self.runner.run(shape, lambda: self._step(chunk, losses, j))
-            self.optimizer.count += 1
+            self.runner.run((shape, self.optimizer.emits),
+                            lambda: self._step(chunk, losses, j))
+            self.optimizer.advance()
         return losses[:n].clone()
 
     def _step(self, chunk: torch.Tensor, losses: torch.Tensor, j: torch.Tensor) -> None:
@@ -146,51 +166,100 @@ class Trainer:
         run_dir: Path | str = "lightning_logs",
         run_id: Optional[str] = None,
         seed: int = 42,
+        use_mesh: bool = True,
+        mesh: Optional[Any] = None,
         log_every_n_steps: int = 50,
+        callbacks: Optional[list] = None,
+        accumulate_grad_batches: int = 1,
+        resume: bool = False,
+        save_resume_state: bool = True,
         steps_per_call: int = 16,
         epochs_per_call: int = 1,
     ) -> None:
-        """``steps_per_call``: consecutive same-shape optimizer steps taken
-        per call of :class:`GraphedSteps` (replays of a captured step graph on
+        """``accumulate_grad_batches``: micro-batches per optimizer update
+        (the schedule advances once per update).  ``resume``: restore the
+        snapshot in ``run_dir/run_id/resume`` and continue that run exactly;
+        ``save_resume_state``: write it at every epoch end.
+        ``steps_per_call``: consecutive same-shape optimizer steps taken per
+        call of :class:`GraphedSteps` (replays of a captured step graph on
         the card); 1 is the eager per-step loop.  The training trajectory is
-        the same for every value.  ``epochs_per_call > 1`` is not ported yet
-        (ROADMAP.md)."""
+        the same for every value.  ``use_mesh`` on one device changes
+        nothing, as with one JAX device; a mesh over several devices and
+        ``epochs_per_call > 1`` are not ported yet (ROADMAP.md)."""
         if epochs_per_call > 1:
             raise NotImplementedError(
                 "epochs_per_call > 1 (the device-resident epoch loop) is not ported yet "
                 "(ROADMAP.md: epochs_per_call)"
             )
+        if mesh is not None:
+            raise NotImplementedError("mesh is not ported yet (ROADMAP.md: distribution)")
         self.max_epochs = max_epochs
         self.gradient_clip_val = gradient_clip_val
         self.seed = seed
+        self.use_mesh = use_mesh
         self.log_every_n_steps = log_every_n_steps
+        self.callbacks = list(callbacks or [])
+        self.accumulate_grad_batches = max(1, int(accumulate_grad_batches))
+        self.resume = resume
+        self.save_resume_state = save_resume_state
         self.steps_per_call = max(1, int(steps_per_call))
         self.run_id = run_id if run_id is not None else time.strftime("%Y%m%d_%H%M%S")
         self.run_dir = Path(run_dir) / self.run_id
         self.run_dir.mkdir(parents=True, exist_ok=True)
         self.metrics_path = self.run_dir / "metrics.jsonl"
         self.best_val_loss = float("inf")
+        self.best_checkpoint: Optional[Path] = None
+
+    def _check_mesh(self, device: torch.device) -> None:
+        if not self.use_mesh:
+            return
+        if device.type == "cuda" and torch.cuda.device_count() > 1:
+            raise NotImplementedError(
+                f"use_mesh over {torch.cuda.device_count()} CUDA devices: the dp×tp mesh "
+                "is not ported yet (ROADMAP.md: distribution); pass use_mesh=False or "
+                "make one device visible")
+        logging.info("use_mesh on one device: no mesh (the dp×tp mesh is ROADMAP A.8)")
 
     def fit(self, model: ScoreModel, datamodule: Any) -> ScoreModel:
         """Train a copy of ``model.network``; set ``model.network`` to the
         best-val parameters, frozen, and return ``model``."""
         device = module_device(model.network)
+        self._check_mesh(device)
         network = copy.deepcopy(model.network).train().requires_grad_(True)
         generator = torch.Generator(device=device).manual_seed(self.seed)
         optimizer = make_optimizer(
             network.parameters(), model.lr_max, model.num_training_steps,
             gradient_clip_val=self.gradient_clip_val,
+            accumulate_grad_batches=self.accumulate_grad_batches,
         )
+        best_state: Optional[dict[str, torch.Tensor]] = None
+        start_epoch = global_step = 0
+        if self.resume:
+            restored = checkpoint.load_train_state(self.run_dir)
+            if restored is not None:
+                state, meta = restored
+                network.load_state_dict(state["network"])
+                optimizer.load_state_dict(state["optimizer"])
+                generator.set_state(state["generator"])
+                start_epoch = int(meta["epoch"]) + 1
+                global_step = int(meta["global_step"])
+                self.best_val_loss = float(meta["best_val_loss"])
+                ckpts = self.run_dir / "checkpoints"
+                if any(ckpts.glob("*.ckpt")):
+                    self.best_checkpoint = checkpoint.get_best_checkpoint(ckpts)
+                    best_state = checkpoint.load_network_state(self.best_checkpoint)
+                logging.info("resuming from epoch %d (global step %d)", start_epoch, global_step)
         scheduler = model.scheduler
         spc = self.steps_per_call
         graphed = (GraphedSteps(network, optimizer, scheduler, generator,
                                 model.likelihood_weighting, spc) if spc > 1 else None)
         train_loader = datamodule.train_dataloader()
+        if start_epoch:
+            train_loader.skip_epochs(start_epoch)
         val_batches = [torch.from_numpy(b).to(device) for b in datamodule.val_dataloader()]
-        best_state: Optional[dict[str, torch.Tensor]] = None
-        global_step = 0
+        per_update = self.accumulate_grad_batches
 
-        for epoch in range(self.max_epochs):
+        for epoch in range(start_epoch, self.max_epochs):
             t0 = time.perf_counter()
             losses = []
             batches = list(train_loader)
@@ -207,7 +276,7 @@ class Trainer:
                     if global_step % self.log_every_n_steps == 0:
                         self._log({"step": global_step, "epoch": epoch,
                                    "train/loss": float(step_losses[off]),
-                                   "lr": optimizer.schedule(global_step)})
+                                   "lr": optimizer.schedule(global_step // per_update)})
             train_loss = float(torch.cat(losses).mean())
 
             with torch.no_grad():
@@ -224,12 +293,23 @@ class Trainer:
             dt = time.perf_counter() - t0
             self._log({"step": global_step, "epoch": epoch, "train/loss_epoch": train_loss,
                        "val/loss": val_loss, "epoch_time_s": round(dt, 2),
-                       "lr": optimizer.lr})
+                       "lr": optimizer.schedule(global_step // per_update)})
             logging.info("epoch %d: train/loss %.5f val/loss %.5f (%.1fs)",
                          epoch, train_loss, val_loss, dt)
             if val_loss < self.best_val_loss:
                 self.best_val_loss = val_loss
                 best_state = {k: v.detach().clone() for k, v in network.state_dict().items()}
+                self.best_checkpoint = checkpoint.save_checkpoint(
+                    self.run_dir, dataclasses.replace(model, network=network), epoch, val_loss)
+                wandb.maybe_log_model(self.best_checkpoint)
+            if self.save_resume_state:
+                checkpoint.save_train_state(
+                    self.run_dir,
+                    {"network": network.state_dict(), "optimizer": optimizer.state_dict(),
+                     "generator": generator.get_state()},
+                    epoch=epoch, global_step=global_step, best_val_loss=self.best_val_loss)
+            for callback in self.callbacks:
+                callback.on_train_epoch_end(trainer=self, network=network, epoch=epoch)
 
         if best_state is not None:
             network.load_state_dict(best_state)
@@ -239,3 +319,4 @@ class Trainer:
     def _log(self, record: dict[str, Any]) -> None:
         with open(self.metrics_path, "a") as f:
             f.write(json.dumps(record) + "\n")
+        wandb.maybe_log_wandb(record)

@@ -20,7 +20,8 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "fdtpu_torch runs on CUDA by default and no CUDA device is "
-            "available; pass device='cpu' to run on the CPU explicitly."
+            "available; pass device='cpu' (+device=cpu to a CLI) to run on the CPU "
+            "explicitly."
         )
     return dev
 

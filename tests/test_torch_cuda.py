@@ -455,14 +455,16 @@ GRAPH_CHAINS = {
 }
 
 
-def _graph_model(attention_impl="blockdiag", dropout=0.0):
+def _graph_model(attention_impl="blockdiag", dropout=0.0, backbone="transformer", device=None):
     from fdtpu_torch.diffusion import VPScheduler
     from fdtpu_torch.models import ScoreModel, ScoreModelConfig, init_score_model
 
     cfg = ScoreModelConfig(n_channels=2, max_len=33, d_model=24, num_layers=2, n_head=4,
-                           dim_feedforward=48, attention_impl=attention_impl, dropout=dropout)
-    net = init_score_model(cfg, torch.Generator().manual_seed(0))
-    sched = VPScheduler(fourier_noise_scaling=True, beta_max=2.0).with_noise_scaling(33, "cuda")
+                           dim_feedforward=48, attention_impl=attention_impl, dropout=dropout,
+                           backbone=backbone, d_mlp=40)
+    net = init_score_model(cfg, torch.Generator().manual_seed(0), device)
+    sched = VPScheduler(fourier_noise_scaling=True, beta_max=2.0).with_noise_scaling(
+        33, device or "cuda")
     return ScoreModel(config=cfg, network=net, scheduler=sched)
 
 
@@ -564,6 +566,61 @@ def test_graphed_train_steps_equal_eager_steps_with_dropout(cuda):
     torch.testing.assert_close(l2, l1, rtol=2e-4, atol=0)
     for a, b in zip(p1, p2):
         torch.testing.assert_close(b, a, rtol=2e-5, atol=2e-6)
+
+
+def test_graphed_accumulation_steps_equal_eager_steps(cuda):
+    """``accumulate_grad_batches=2``: two step graphs a batch shape (the
+    micro-step that only accumulates, the one that also updates), replayed,
+    against the eager micro-steps: the same losses and parameters (bitwise
+    expected; rtol 2e-5 / atol 2e-6 as above), four updates in eight."""
+    import numpy as np
+
+    from fdtpu_torch.train import make_optimizer, train_step
+    from fdtpu_torch.train.trainer import GraphedSteps
+
+    model = _graph_model(dropout=0.1)
+    rng = np.random.default_rng(1)
+    batches = [rng.standard_normal((8, 33, 2)).astype(np.float32) for _ in range(8)]
+    results = []
+    for graphed in (False, True):
+        net = _graph_model(dropout=0.1).network.train().requires_grad_(True)
+        opt = make_optimizer(net.parameters(), 1e-3, 20, accumulate_grad_batches=2)
+        gen = torch.Generator("cuda").manual_seed(9)
+        if graphed:
+            steps = GraphedSteps(net, opt, model.scheduler, gen, False, 8)
+            losses = torch.cat([steps.run(batches[:3]), steps.run(batches[3:])])
+            assert sorted(k[1] for k in steps.runner.graphs) == [False, True]
+        else:
+            losses = torch.stack([train_step(net, opt, model.scheduler,
+                                             torch.from_numpy(b).cuda(), gen) for b in batches])
+        torch.cuda.synchronize()
+        assert (opt.count, int(opt.updates), opt.mini_step) == (4, 4, 0)
+        results.append((losses, [p.detach().clone() for p in net.parameters()]))
+    (l1, p1), (l2, p2) = results
+    torch.testing.assert_close(l2, l1, rtol=2e-4, atol=0)
+    for a, b in zip(p1, p2):
+        torch.testing.assert_close(b, a, rtol=2e-5, atol=2e-6)
+
+
+@pytest.mark.parametrize("backbone", ["mlp", "lstm"])
+def test_mlp_and_lstm_on_the_card(cuda, backbone):
+    """The MLP and LSTM backbones: the forward on the card against the CPU
+    (atol 2e-5, the einsum transformer's tolerance against JAX), and the
+    grouped sampler's replays of captured graphs against the eager chain
+    (rtol 2e-5 / atol 5e-5, as the transformer's chains above)."""
+    model = _graph_model(backbone=backbone)
+    cpu = _graph_model(backbone=backbone, device="cpu")
+    x = torch.randn((4, 33, 2), generator=cuda, device="cuda")
+    t = torch.rand((4,), generator=cuda, device="cuda")
+    torch.testing.assert_close(model.network(x, t).cpu(), cpu.network(x.cpu(), t.cpu()),
+                               rtol=0, atol=2e-5)
+    samples = {}
+    for k in (1, 2):
+        sampler = DiffusionSampler(model, 4, batches_per_call=k)
+        samples[k] = sampler.sample(12, 20, generator=torch.Generator("cuda").manual_seed(5))
+    (chain,) = sampler._chains.values()
+    assert chain.runner.replays > 0
+    torch.testing.assert_close(samples[2], samples[1], rtol=2e-5, atol=5e-5)
 
 
 def test_graph_replays_read_nothing_back_from_the_card(cuda, monkeypatch):

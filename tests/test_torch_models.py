@@ -21,7 +21,7 @@ from fdtpu.models import score_models as jsm
 from fdtpu.models.initializers import max_norm_rows as jax_max_norm_rows
 from fdtpu_torch.models import score_models as psm
 from fdtpu_torch.models.initializers import max_norm_rows
-from fdtpu_torch.utils.convert import load_jax_variables
+from fdtpu_torch.utils.convert import load_jax_variables, state_dict_to_jax_variables
 from fdtpu_torch.utils.device import resolve_device
 
 SMALL = dict(n_channels=2, d_model=12, num_layers=2, n_head=2, dim_feedforward=24)
@@ -153,17 +153,101 @@ def test_wrong_input_shape_raises():
 
 
 def test_resolve_attention_impl():
+    """``auto`` takes the kernels on CUDA at every head_dim they take (the
+    H100's crossover, PERF.md §6), einsum past 32 and on the CPU."""
     assert psm.resolve_attention_impl("einsum", 6) == "einsum"
     assert psm.resolve_attention_impl("blockdiag", 32) == "blockdiag"
     assert psm.resolve_attention_impl("auto", 6, "cpu") == "einsum"
     assert psm.resolve_attention_impl("auto", 6, "cuda") == "blockdiag"
-    assert psm.resolve_attention_impl("auto", 16, "cuda") == "einsum"
+    assert psm.resolve_attention_impl("auto", 16, "cuda") == "blockdiag"
+    assert psm.resolve_attention_impl("auto", 32, "cuda") == "blockdiag"
+    assert psm.resolve_attention_impl("auto", 33, "cuda") == "einsum"
 
 
 def test_unported_backbones_raise_not_implemented():
-    cfg = psm.ScoreModelConfig(**SMALL, max_len=16, backbone="mlp")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """Every backbone of the JAX package is ported; a backbone it does not
+    have is refused by name."""
+    for backbone, cls in (("transformer", psm.ScoreNetwork), ("mlp", psm.MLPScoreNetwork),
+                          ("lstm", psm.LSTMScoreNetwork)):
+        cfg = psm.ScoreModelConfig(**SMALL, max_len=16, backbone=backbone)
+        assert type(psm.init_score_model(cfg, device="cpu")) is cls
+    cfg = psm.ScoreModelConfig(**SMALL, max_len=16, backbone="gru")
+    with pytest.raises(ValueError, match="transformer, mlp or lstm"):
         psm.init_score_model(cfg, device="cpu")
+
+
+# The MLP and LSTM backbones (fdtpu/models/score_models.py:276-341): the same
+# tolerance as the einsum transformer (atol 2e-5).
+@pytest.mark.parametrize("backbone", ["mlp", "lstm"])
+@pytest.mark.parametrize("max_len", [16, 17])
+@pytest.mark.parametrize("compute_dtype, atol", [("float32", 2e-5), ("bfloat16", 5e-2)])
+def test_mlp_and_lstm_score_apply_match_jax(backbone, max_len, compute_dtype, atol):
+    kw = dict(SMALL, max_len=max_len, backbone=backbone, d_mlp=20, compute_dtype=compute_dtype)
+    jcfg = jsm.ScoreModelConfig(**kw)
+    variables = jax.tree.map(np.asarray, jsm.init_score_model(jax.random.PRNGKey(5), jcfg))
+    net = psm.init_score_model(psm.ScoreModelConfig(**kw), device="cpu")
+    load_jax_variables(net, variables)
+    assert psm.param_count(net) == jsm.param_count(variables)
+    x, t = _xt(max_len, seed=6)
+    want = np.asarray(jsm.score_apply(variables, jcfg, jnp.asarray(x), jnp.asarray(t)))
+    got = psm.score_apply(net.compute_copy(), torch.from_numpy(x), torch.from_numpy(t))
+    assert got.dtype == torch.float32 and got.shape == x.shape
+    np.testing.assert_allclose(got.numpy(), want, atol=atol)
+
+
+@pytest.mark.parametrize("backbone", ["transformer", "mlp", "lstm"])
+def test_conversion_round_trips_both_ways(backbone):
+    kw = dict(SMALL, max_len=16, backbone=backbone, d_mlp=20)
+    variables = jax.tree.map(np.asarray, jsm.init_score_model(jax.random.PRNGKey(7),
+                                                              jsm.ScoreModelConfig(**kw)))
+    net = psm.init_score_model(psm.ScoreModelConfig(**kw), device="cpu")
+    back = state_dict_to_jax_variables(load_jax_variables(net, variables).state_dict())
+    assert jax.tree.structure(back) == jax.tree.structure(variables)
+    for got, want in zip(jax.tree.leaves(back), jax.tree.leaves(variables)):
+        np.testing.assert_array_equal(got, want)
+    if backbone == "lstm":
+        # x @ w in JAX, w @ x in torch, gates (i, f, g, o) kept in order.
+        np.testing.assert_array_equal(net.backbone[1].w_hh.numpy(),
+                                      variables["params"]["backbone"]["w_hh"][1].T)
+
+
+def test_mlp_dropout_draws_two_masks_a_block_from_the_generator():
+    cfg = psm.ScoreModelConfig(**dict(SMALL, max_len=16, backbone="mlp", d_mlp=20))
+    net = psm.init_score_model(cfg, torch.Generator().manual_seed(0), device="cpu")
+    x, t = (torch.from_numpy(a) for a in _xt(16))
+    g = torch.Generator().manual_seed(1)
+    first = net(x, t, train=True, generator=g)
+    assert g.initial_seed() == 1 and not torch.equal(first, net(x, t))
+    torch.testing.assert_close(net(x, t, train=True, generator=torch.Generator().manual_seed(1)),
+                               first, rtol=0, atol=0)
+    torch.testing.assert_close(net(x, t, train=True), net(x, t), rtol=0, atol=0)
+    # Two (B, d_mlp) and (B, d_model) masks a block, in order: the generator
+    # has advanced by their uniforms.
+    ref = torch.Generator().manual_seed(1)
+    for _ in range(cfg.num_layers):
+        torch.rand((4, cfg.d_mlp), generator=ref)
+        torch.rand((4, cfg.d_model), generator=ref)
+    torch.testing.assert_close(torch.rand(3, generator=g), torch.rand(3, generator=ref))
+
+
+@pytest.mark.parametrize("backbone", ["mlp", "lstm"])
+def test_token_and_kv_levels_are_transformer_only(backbone):
+    from fdtpu_torch.diffusion import VPScheduler
+    from fdtpu_torch.sampling import DiffusionSampler
+
+    cfg = psm.ScoreModelConfig(**dict(SMALL, max_len=16, backbone=backbone, d_mlp=20))
+    net = psm.init_score_model(cfg, device="cpu")
+    model = psm.ScoreModel(config=cfg, network=net, scheduler=VPScheduler())
+    for level in ("token", "kv"):
+        sampler = DiffusionSampler(model, 4, use_cache=True,
+                                   cache_kwargs={"level": level, "token_budget": 4})
+        with pytest.raises(ValueError, match="transformer backbone"):
+            sampler.sample(4, 3, generator=torch.Generator().manual_seed(0))
+    with pytest.raises(ValueError, match="transformer backbone"):
+        psm.score_apply_cached(net, torch.zeros(2, 16, 2), torch.ones(2), (None, None), None, 0)
+    samples = DiffusionSampler(model, 4, use_cache=True, cache_kwargs={"level": "score"}).sample(
+        4, 6, generator=torch.Generator().manual_seed(0))
+    assert samples.shape == (4, 16, 2) and bool(torch.isfinite(samples).all())
 
 
 def test_max_norm_rows_matches_jax_and_leaves_the_table():

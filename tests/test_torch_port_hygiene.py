@@ -1,6 +1,8 @@
-"""Hygiene of the PyTorch port: ``fdtpu_torch`` and ``chip_smoke.py`` import
-neither JAX (``jax``, ``flax``, ``optax``) nor the JAX package ``fdtpu``, and
-they lint clean with the repository's own checker."""
+"""Hygiene of the PyTorch port: ``fdtpu_torch`` (its CLIs included) and
+``chip_smoke.py`` import neither JAX (``jax``, ``flax``, ``optax``,
+``orbax``), nor the JAX package ``fdtpu``, nor PyYAML or pandas (the card's
+machine has neither), and they lint clean with the repository's own
+checker."""
 
 import ast
 import subprocess
@@ -11,7 +13,7 @@ import pytest
 
 REPO = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((REPO / "fdtpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
-FORBIDDEN = {"jax", "flax", "optax", "fdtpu"}
+FORBIDDEN = {"jax", "flax", "optax", "orbax", "fdtpu", "yaml", "pandas"}
 
 
 def _imported_roots(path: Path) -> set[str]:
@@ -26,6 +28,9 @@ def _imported_roots(path: Path) -> set[str]:
 
 def test_port_has_files():
     assert len(PORT_FILES) > 10
+    names = {str(p.relative_to(REPO)) for p in PORT_FILES}
+    assert {"fdtpu_torch/cli/train.py", "fdtpu_torch/cli/sample.py",
+            "fdtpu_torch/utils/config.py"} <= names
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(REPO)))
@@ -37,8 +42,9 @@ def test_port_file_imports_no_jax_and_no_fdtpu(path):
 def test_scanner_catches_forbidden_imports(tmp_path):
     src = tmp_path / "m.py"
     src.write_text("import jax.numpy as jnp\nfrom fdtpu.ops import dft\n"
-                   "from fdtpu_torch.ops import idft\nimport optax\n")
-    assert _imported_roots(src) & FORBIDDEN == {"jax", "fdtpu", "optax"}
+                   "from fdtpu_torch.ops import idft\nimport optax\nimport yaml\n"
+                   "from fdtpu_torch.utils import yaml_subset\n")
+    assert _imported_roots(src) & FORBIDDEN == {"jax", "fdtpu", "optax", "yaml"}
 
 
 @pytest.mark.parametrize("paths", [["fdtpu_torch", "chip_smoke.py"], ["tests"]])

@@ -59,8 +59,8 @@ def pallas_interpret(monkeypatch):
     )
 
 
-def _pair(attention_impl="einsum", dropout=0.0, seed=0):
-    kw = dict(TINY, attention_impl=attention_impl, dropout=dropout)
+def _pair(attention_impl="einsum", dropout=0.0, seed=0, backbone="transformer"):
+    kw = dict(TINY, attention_impl=attention_impl, dropout=dropout, backbone=backbone, d_mlp=20)
     jcfg = jsm.ScoreModelConfig(**kw)
     variables = jax.tree.map(np.asarray, jsm.init_score_model(jax.random.PRNGKey(seed), jcfg))
     net = init_score_model(ScoreModelConfig(**kw), device="cpu")
@@ -165,9 +165,14 @@ def _first_divergence(got: dict, want: dict, atol: float, prefix: str = "") -> s
     return None
 
 
-@pytest.mark.parametrize("impl", ["einsum", "blockdiag"])
+@pytest.mark.parametrize("impl", ["einsum", "blockdiag", "mlp", "lstm"])
 def test_three_optimizer_steps_match_jax(pallas_interpret, impl):
-    jcfg, variables, net = _pair(impl)
+    """The transformer at both attention paths, and the MLP and LSTM
+    backbones (``impl`` names the backbone)."""
+    if impl in ("mlp", "lstm"):
+        jcfg, variables, net = _pair(backbone=impl)
+    else:
+        jcfg, variables, net = _pair(impl)
     net.train().requires_grad_(True)
     jsched, psched = _schedulers()
     x, _ = _batch()
@@ -436,3 +441,132 @@ def test_trainer_steps_per_call_matches_jax(tmp_path, odd_datamodule, monkeypatc
 def test_epochs_per_call_is_not_ported(tmp_path):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Trainer(run_dir=tmp_path, run_id="r", epochs_per_call=2)
+
+
+@pytest.mark.parametrize("accumulate", [1, 2, 3])
+def test_get_training_params_divides_as_jax(tmp_path, accumulate):
+    dm = SyntheticDatamodule(tmp_path / "data", max_len=16, num_samples=70, batch_size=16)
+    dm.prepare_data()
+    dm.setup()
+    assert get_training_params(dm, 3, accumulate) == jax_training_params(dm, 3, accumulate)
+
+
+@pytest.mark.parametrize("k", [2, 3])
+def test_accumulation_matches_optax_multisteps(k):
+    """``ClippedAdamW(accumulate_grad_batches=k)`` against
+    ``optax.MultiSteps`` over 2k + 1 micro-steps of random gradients (the
+    norm above the clip on some): parameters at every micro-step (rtol 1e-6,
+    atol 1e-9), one update and one schedule step per k micro-steps."""
+    rng = np.random.default_rng(k)
+    shapes = ((3, 4), (5,))
+    params = [rng.standard_normal(sh).astype(np.float32) for sh in shapes]
+    tx = jax_state.make_optimizer(1e-2, 10, accumulate_grad_batches=k)
+    jparams = [jnp.asarray(a) for a in params]
+    state = tx.init(jparams)
+    tparams = [torch.nn.Parameter(torch.from_numpy(a.copy())) for a in params]
+    opt = make_optimizer(tparams, 1e-2, 10, accumulate_grad_batches=k)
+    for step in range(2 * k + 1):
+        grads = [rng.standard_normal(sh).astype(np.float32) * (3.0 if step % 2 else 0.1)
+                 for sh in shapes]
+        updates, state = tx.update([jnp.asarray(g) for g in grads], state, jparams)
+        jparams = optax.apply_updates(jparams, updates)
+        for p_, g in zip(tparams, grads):
+            p_.grad = torch.from_numpy(g)
+        opt.step()
+        for got, want in zip(tparams, jparams):
+            np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), rtol=1e-6,
+                                       atol=1e-9, err_msg=f"micro-step {step}")
+        assert opt.mini_step == int(state.mini_step)
+        assert opt.count == int(opt.updates) == int(state.gradient_step)
+
+
+@pytest.fixture
+def five_batch_datamodule(tmp_path):
+    """Five train batches an epoch, the last shorter: with two micro-steps
+    an update, an update spans the epoch boundary."""
+    dm = SyntheticDatamodule(tmp_path / "data5", max_len=16, num_samples=70, batch_size=16,
+                             fourier_transform=True, standardize=True, random_seed=3)
+    dm.prepare_data()
+    dm.setup()
+    assert [b.shape[0] for b in dm.train_dataloader()] == [16, 16, 16, 16, 6]
+    return dm
+
+
+def test_trainer_accumulation_matches_jax_across_epochs(tmp_path, five_batch_datamodule,
+                                                        monkeypatch):
+    """``accumulate_grad_batches=2`` over two epochs of five batches
+    against the JAX trainer (``optax.MultiSteps``, whose micro-step count
+    carries over the epoch boundary), at ``steps_per_call=16``, with the JAX
+    step keys' t and z handed to every loss: per-step losses, val losses,
+    rates and the best-val parameters at this file's tolerance (1e-4)."""
+    from fdtpu.train.trainer import Trainer as JaxTrainer
+    from fdtpu_torch.train import trainer as trainer_mod
+
+    jcfg, variables, net = _pair(dropout=0.0)
+    dm = five_batch_datamodule
+    j_dm = JaxSynthetic(data_dir=tmp_path / "jaxdata", max_len=16, num_samples=70,
+                        batch_size=16, fourier_transform=True, standardize=True, random_seed=3)
+    j_dm.prepare_data()
+    j_dm.setup()
+    n_steps = get_training_params(dm, 2, 2)["num_training_steps"]
+    assert n_steps == 5
+    jmodel = jsm.ScoreModel(config=jcfg, variables=variables,
+                            scheduler=_schedulers()[0], num_training_steps=n_steps)
+    jtrainer = JaxTrainer(max_epochs=2, run_dir=tmp_path / "jax", run_id="j", seed=1,
+                          log_every_n_steps=1, steps_per_call=16, use_mesh=False,
+                          save_resume_state=False, accumulate_grad_batches=2)
+    jmodel = jtrainer.fit(jmodel, j_dm)
+
+    def step_keys():
+        key = jax.random.PRNGKey(1)
+        while True:
+            key, step_key = jax.random.split(key)
+            yield step_key
+
+    keys, real_loss = step_keys(), trainer_mod.sde_loss
+
+    def jax_draws_loss(network, scheduler, x, generator=None, **kw):
+        key_t, key_z, _ = jax.random.split(next(keys), 3)
+        t = jax.random.uniform(key_t, (x.shape[0],), jnp.float32) * (1.0 - 1e-5) + 1e-5
+        z = jax.random.normal(key_z, tuple(x.shape), jnp.float32)
+        return real_loss(network, scheduler, x, timesteps=torch.from_numpy(np.array(t)),
+                         noise=torch.from_numpy(np.array(z)), **kw)
+
+    monkeypatch.setattr(trainer_mod, "sde_loss", jax_draws_loss)
+    model = ScoreModel(ScoreModelConfig(**dict(TINY, dropout=0.0)), net,
+                       _schedulers()[1], num_training_steps=n_steps)
+    trainer = Trainer(max_epochs=2, run_dir=tmp_path / "runs", run_id="port", seed=1,
+                      log_every_n_steps=1, steps_per_call=16, accumulate_grad_batches=2)
+    model = trainer.fit(model, dm)
+    got, want = _records(trainer), _records(jtrainer)
+    assert [sorted(r) for r in got] == [sorted(r) for r in want] and len(got) == 12
+    for g, w in zip(got, want):
+        assert g["step"] == w["step"] and g["epoch"] == w["epoch"]
+        for key in ("train/loss", "train/loss_epoch", "val/loss"):
+            if key in w:
+                np.testing.assert_allclose(g[key], w[key], rtol=1e-4, err_msg=f"{key} {w['step']}")
+        np.testing.assert_allclose(g["lr"], w["lr"], rtol=1e-6, atol=1e-10)
+    port = state_dict_to_jax_variables(model.network.state_dict())["params"]
+    divergence = _first_divergence(port, jax.tree.map(np.asarray, jmodel.variables["params"]),
+                                   atol=1e-4)
+    assert divergence is None, f"first parameter past 1e-4: {divergence}"
+
+
+def test_trainer_accumulation_is_the_same_for_every_steps_per_call(tmp_path,
+                                                                   five_batch_datamodule):
+    """At ``accumulate_grad_batches=2`` the grouped steps (two step graphs a
+    shape on the card, keyed on whether the micro-step updates) give the
+    per-step loop's trajectory: bitwise on the CPU, where both run the same
+    operations."""
+    fits = []
+    for spc in (1, 16):
+        cfg = ScoreModelConfig(**TINY)
+        net = init_score_model(cfg, torch.Generator().manual_seed(0), device="cpu")
+        model = ScoreModel(cfg, net, _schedulers()[1], num_training_steps=5)
+        trainer = Trainer(max_epochs=2, run_dir=tmp_path, run_id=f"acc{spc}", seed=1,
+                          log_every_n_steps=1, steps_per_call=spc, accumulate_grad_batches=2)
+        fits.append((trainer.fit(model, five_batch_datamodule), _records(trainer)))
+    (m1, r1), (m16, r16) = fits
+    torch.testing.assert_close(m16.network.state_dict(), m1.network.state_dict(), rtol=0, atol=0)
+    assert r16 == [dict(r, epoch_time_s=r16[i].get("epoch_time_s")) if "epoch_time_s" in r
+                   else r for i, r in enumerate(r1)]
