@@ -8,8 +8,9 @@ Usage, from the repository root, on a machine with one CUDA card and nvcc:
 Phases (any failure exits non-zero and prints no result):
 
 1. Header: the card's name and power limit (nvidia-smi), torch and CUDA
-   versions; builds the CUDA kernels from ``fdtpu_torch/kernels/csrc``, one
-   ``nvcc`` per source, in parallel.
+   versions; builds the CUDA sources of ``fdtpu_torch/kernels/csrc`` (B1,
+   B2, B4 and the conditional-node helper), one ``nvcc`` per source, in
+   parallel.
 2. Kernels: each hand-written kernel against its plain PyTorch version on the
    card, at the main path's shapes (B1 at the serving batch, B2 at the
    training batch, B4 at the token level's rows against all keys, at the
@@ -24,11 +25,9 @@ Phases (any failure exits non-zero and prints no result):
 3. Slice: the flagship score model (d_model 72, 10 layers, 12 heads, FFN
    2048, 187 frequency tokens; random weights from a seed) on CUDA with the
    block-diagonal attention kernel: ``score_apply`` against the einsum path
-   and against the CPU; then ``DiffusionSampler`` uncached and at the
-   score-level E²-CRF operating point, T = 1000 steps, 256 samples in
-   batches of 128; kernel launches counted on each chain; samples
-   de-standardized with the synthetic train-set statistics and taken back to
-   the time domain.
+   and against the CPU; a 50-step uncached chain CUDA against the CPU; where
+   a 200-step score-level chain's time goes.  The T = 1000 uncached and
+   score-level chains are the graphs phase's.
 4. Token and KV levels: a 50-step token-level chain on CUDA against the CPU
    (the same noise and probe uniforms; the same mode at every step); the
    token level at ``cli/ablation_cache.py``'s ``token_full`` arm (256
@@ -58,19 +57,28 @@ Phases (any failure exits non-zero and prints no result):
    and frequency domain, spectral density, self-split and dummy baselines)
    against the datamodule's train set.  Quality is printed, not gated; B1's
    launches are counted.  It runs at ``configs/sampler/default.yaml``'s
-   ``batches_per_call: 2``: replays of captured graphs.
+   ``batches_per_call: 2``: the resident chain.
 8. Graphs (run before 5): each flagship chain (uncached, score, token, KV
    event and macro, the three of phase 6) at T = 1000 on 256 samples in
-   batches of 128, with ``batches_per_call`` 1 (the eager loop) and 2
-   (replays of segment graphs captured once per sampler): the same mode at
-   every step, equal cache statistics, samples bitwise equal or within
-   rtol 2e-5 / atol 5e-5, the launch checks through replays, B1 and B4
-   inside captured graphs; ms/step, launch calls a step and the busy share
-   over a 200-step window.  ``Trainer.fit`` at ``steps_per_call`` 1 and 16
-   (samples/s; per-step losses and final parameters against each other at
-   the JAX chunking test's tolerances), and 16 steps eager against one call
-   of 16 replays (ms/step, busy share, B1–B3 inside the step graph).  Phase
-   5's ``Trainer.fit`` runs at the default ``steps_per_call`` (16).
+   batches of 128, with ``batches_per_call`` 1 (the eager loop, a device
+   read a step) and 2 (the resident chain: each trajectory one replay of a
+   graph with a WHILE node over the steps and an IF node per branch, the
+   E²-CRF decisions taken on the device): the same mode at every step,
+   equal cache statistics, samples bitwise equal, the launch checks through
+   replays, B1 and B4 inside the branches; the uncached and score-level
+   samples taken back to the time domain; ms/step, samples/s, and in a
+   profiled call of two 50-step trajectories the launch API calls a
+   trajectory, the device-to-host copies a call (at most one, the
+   statistics) and the busy share; two resident trajectories alone run
+   under ``set_sync_debug_mode("error")`` (no device read inside), with
+   their device span over their wall time.
+   ``Trainer.fit`` at ``steps_per_call`` 1 and 16 (samples/s; per-step
+   losses and final parameters against each other at the JAX chunking
+   test's tolerances), 16 steps eager against one call of 16 replays
+   (ms/step, busy share, B1–B3 inside the step graph), and at
+   ``epochs_per_call`` 2 (the device-resident epoch loop, a captured graph
+   a call) over 2 × 2 epochs.  Phase 5's ``Trainer.fit`` runs at the
+   default ``steps_per_call`` (16).
 9. CLIs, last: ``python -m fdtpu_torch.cli.train``'s ``main`` on the synthetic
    data (2000 samples of 187, 2 epochs, ``configs/train.yaml`` and the
    default score model at its full width, ``attention_impl: auto`` resolving
@@ -78,7 +86,8 @@ Phases (any failure exits non-zero and prints no result):
    against two straight epochs (losses, rates, parameters, optimizer and
    generator state bitwise); one epoch at ``accumulate_grad_batches=2``;
    ``fdtpu_torch.cli.sample``'s ``main`` on that run, 256 samples at
-   T = 1000 in ``configs/sampler/default.yaml``'s batches of 50, uncached,
+   T = 1000 in ``configs/sampler/default.yaml``'s batches of 50 (4 batches
+   resident at its ``batches_per_call`` 2, the fifth too), uncached,
    at the score level's operating point and at the token level's
    ``token_full`` arm, with B1 = 10 × full forwards and B4 = 10 × TOPK steps
    and the "eval:"-style metrics of ``results.yaml``; the MLP and LSTM
@@ -146,6 +155,8 @@ GRAPH_CHAINS = {
     "kv-macro": (KV_MACRO_KWARGS, {}),
     **FREQ_CHAINS,
 }
+# The graphs phase's profiled window: one call of two trajectories of this many steps.
+WINDOW_STEPS = 50
 # configs/sampler/default.yaml's batches_per_call, at which the evaluation runs.
 EVAL_BATCHES_PER_CALL = 2
 # configs/metrics/default.yaml with cli/sample.py's random_seed.
@@ -547,25 +558,28 @@ def device_breakdown(torch, label: str, fn, reps: int = 3, top: int = 8,
     busy = sum(r[0] for r in rows)
     if not rows:
         print(f"breakdown {label}: wall {wall_ms:.4f} ms, the profiler saw no device time")
-        return dict(wall_ms=wall_ms, busy_ms=0.0, busy_share=0.0, api_calls={})
+        return dict(wall_ms=wall_ms, busy_ms=0.0, busy_share=0.0, api_calls={}, d2h=0,
+                    records={})
     calls = {e.key: e.count / reps for e in prof.key_averages() if e.key in LAUNCH_APIS}
+    # Device-to-host copies (a .item(), .tolist() or .cpu() each), by the
+    # copy activities the profiler records on the device.
+    d2h = sum(count for _, count, name in rows if name.startswith("Memcpy DtoH"))
     launched = int(calls.get("cudaLaunchKernel", 0))
     graph_launches = int(calls.get("cudaGraphLaunch", 0))
     print(f"breakdown {label}: wall {wall_ms:.4f} ms, device busy {busy:.4f} ms "
           f"({100 * busy / wall_ms:.1f}%), {launched} cudaLaunchKernel calls, "
-          f"{graph_launches} cudaGraphLaunch calls (trace read in "
+          f"{graph_launches} cudaGraphLaunch calls, {d2h} device-to-host copies (trace read in "
           f"{time.perf_counter() - t_read:.1f} s)", flush=True)
     for ms, count, name in rows[:top]:
         print(f"breakdown {label}: {ms:9.4f} ms {100 * ms / busy:5.1f}% x{count:<5d} "
               f"{name[:90]}", flush=True)
-    return dict(wall_ms=wall_ms, busy_ms=busy, busy_share=busy / wall_ms, api_calls=calls)
+    return dict(wall_ms=wall_ms, busy_ms=busy, busy_share=busy / wall_ms, api_calls=calls,
+                d2h=d2h, records={name: count for _, count, name in rows})
 
 
 def slice_phase(torch, bda) -> dict:
-    from fdtpu_torch.data import SyntheticDatamodule
     from fdtpu_torch.diffusion import VPScheduler
     from fdtpu_torch.models import ScoreModel, ScoreModelConfig, init_score_model, score_apply
-    from fdtpu_torch.ops import idft
     from fdtpu_torch.sampling import DiffusionSampler, sample_chain
 
     cfg = ScoreModelConfig(n_channels=1, max_len=FLAGSHIP["seq"], attention_impl="blockdiag")
@@ -608,45 +622,6 @@ def slice_phase(torch, bda) -> dict:
     print(f"slice: {n_short}-step chain CUDA vs CPU max rel err {rel:.3g}", flush=True)
     check(rel <= 1e-4, f"short chain CUDA vs CPU rel err {rel:.3g} > 1e-4")
 
-    with tempfile.TemporaryDirectory() as tmp:
-        dm = SyntheticDatamodule(tmp, max_len=cfg.max_len, num_samples=1000,
-                                 fourier_transform=True, standardize=True)
-        dm.prepare_data()
-        dm.setup()
-        mean, std = dm.feature_mean_and_std
-
-    chains = {}
-    for name, use_cache in (("uncached", False), ("cached", True)):
-        sampler = DiffusionSampler(model, SAMPLE_BATCH, use_cache=use_cache,
-                                   cache_kwargs=CACHE_KWARGS if use_cache else None)
-        gen = torch.Generator(device="cuda").manual_seed(2)
-        torch.cuda.synchronize()
-        bda.launches = 0
-        t0 = time.perf_counter()
-        samples = sampler.sample(NUM_SAMPLES, NUM_STEPS, generator=gen)
-        torch.cuda.synchronize()
-        seconds = time.perf_counter() - t0
-        launches = bda.launches
-        stats = sampler.get_cache_stats()
-        forwards = stats["full_steps"] if use_cache else NUM_STEPS * (NUM_SAMPLES // SAMPLE_BATCH)
-        check(tuple(samples.shape) == (NUM_SAMPLES, cfg.max_len, 1),
-              f"{name}: samples shape {tuple(samples.shape)}")
-        check(bool(torch.isfinite(samples).all()), f"{name}: samples not finite")
-        check(launches == cfg.num_layers * forwards,
-              f"{name}: {launches} kernel launches for {forwards} full forwards "
-              f"x {cfg.num_layers} layers")
-        data = samples.cpu().numpy() * std + mean
-        series = idft(torch.from_numpy(data).float())
-        check(bool(torch.isfinite(series).all()), f"{name}: de-standardized series not finite")
-        chains[name] = dict(seconds=seconds, samples_per_s=NUM_SAMPLES / seconds,
-                            full_forwards=forwards, launches=launches,
-                            ms_per_step=1e3 * seconds / (NUM_STEPS * (NUM_SAMPLES // SAMPLE_BATCH)))
-        if use_cache:
-            chains[name]["cache_stats"] = stats
-        print(f"chain {name}", json.dumps(chains[name]), flush=True)
-    speedup = chains["cached"]["samples_per_s"] / chains["uncached"]["samples_per_s"]
-    print(f"slice: cached over uncached {speedup:.3f}x (random weights)", flush=True)
-
     # Where a score-level chain's time goes: one batch of 200 steps, profiled.
     window = DiffusionSampler(model, SAMPLE_BATCH, use_cache=True, cache_kwargs=CACHE_KWARGS)
     device_breakdown(
@@ -654,7 +629,7 @@ def slice_phase(torch, bda) -> dict:
         lambda: window.sample(SAMPLE_BATCH, 200, generator=torch.Generator("cuda").manual_seed(3)),
         reps=1, top=6,
     )
-    return chains
+    return {"forward_kernel_ms": fwd_kernel_ms, "forward_einsum_ms": fwd_einsum_ms}
 
 
 def recording(module, name: str, keep):
@@ -680,7 +655,7 @@ def levels_phase(torch, bda, mha) -> dict:
     from fdtpu_torch.cache import E2CRFConfig
     from fdtpu_torch.diffusion import VPScheduler
     from fdtpu_torch.models import ScoreModel, ScoreModelConfig, init_score_model
-    from fdtpu_torch.sampling import DiffusionSampler, sample_chain
+    from fdtpu_torch.sampling import DiffusionSampler, resident, sample_chain
     from fdtpu_torch.sampling import sampler as psampler
 
     cfg = ScoreModelConfig(n_channels=1, max_len=FLAGSHIP["seq"], attention_impl="blockdiag")
@@ -700,7 +675,7 @@ def levels_phase(torch, bda, mha) -> dict:
     runs = {}
     for dev, network, sched in (("cuda", net, scheduler),
                                 ("cpu", net_cpu, VPScheduler(fourier_noise_scaling=True))):
-        modes, undo_modes = recording(psampler, "token_policy", lambda out: out[0])
+        modes, undo_modes = recording(resident, "token_policy", lambda out: int(out[0]))
         rows, undo_rows = recording(psampler, "_topk_rows", lambda idx: sorted(idx.tolist()))
         try:
             x, _ = sample_chain(network, sched, x0.to(dev), cache_cfg=E2CRFConfig(**TOKEN_KWARGS),
@@ -794,7 +769,7 @@ def freq_options_phase(torch, bda, mha) -> dict:
     from fdtpu_torch.diffusion import VPScheduler
     from fdtpu_torch.models import ScoreModel, ScoreModelConfig, init_score_model
     from fdtpu_torch.ops import fresca as pfresca
-    from fdtpu_torch.sampling import DiffusionSampler, sample_chain
+    from fdtpu_torch.sampling import DiffusionSampler, resident, sample_chain
     from fdtpu_torch.sampling import sampler as psampler
 
     cfg = ScoreModelConfig(n_channels=1, max_len=FLAGSHIP["seq"], attention_impl="blockdiag")
@@ -821,8 +796,8 @@ def freq_options_phase(torch, bda, mha) -> dict:
         cpu_sched = VPScheduler(fourier_noise_scaling=True)
         for dev, network, sched in (("cuda", net, scheduler), ("cpu", net_cpu, cpu_sched),
                                     ("cpu-einsum", net_cpu_einsum, cpu_sched)):
-            modes, undo_modes = recording(psampler, policy,
-                                          lambda out: int(out) if isinstance(out, bool) else out[0])
+            modes, undo_modes = recording(
+                resident, policy, lambda out: int(out[0] if isinstance(out, tuple) else out))
             # The energy cutoff bin of each FreSca call (a device read a
             # step, here only).
             bins, undo_bins = recording(pfresca, "create_frequency_masks",
@@ -944,56 +919,38 @@ def freq_options_phase(torch, bda, mha) -> dict:
     return chains
 
 
-def record_modes(level):
-    """Record each step's mode, on the eager and the graphed chain alike,
-    from the host-counter helpers both call once a step: score level F/S,
-    token level F/T/S, KV level F/M/C.  The second value undoes it."""
-    from fdtpu_torch.cache import e2crf
-    from fdtpu_torch.sampling import graphed
-    from fdtpu_torch.sampling import sampler as psampler
-
-    modes, undo = [], []
-
-    def wrap(module, name, mode_of):
-        orig = getattr(module, name)
-
-        def wrapped(*args, **kwargs):
-            modes.append(mode_of(args))
-            return orig(*args, **kwargs)
-
-        setattr(module, name, wrapped)
-        undo.append(lambda: setattr(module, name, orig))
-
-    if level == "score":
-        for module in (psampler, graphed):
-            wrap(module, "_count_refresh", lambda a: "F")
-            wrap(module, "_count_skip", lambda a: "S")
-    elif level == "token":
-        for module in (psampler, graphed):
-            wrap(module, "_count_token", lambda a: "FTS"[a[1]])
-    elif level == "kv":
-        for module in (e2crf, graphed):
-            wrap(module, "count_kv_step", lambda a: "FMC"[a[1]])
-    return modes, lambda: [u() for u in reversed(undo)]
-
-
 def graphs_phase(torch, bda, mha) -> dict:
-    """Each flagship chain with ``batches_per_call`` 1 (the eager loop) and 2
-    (replays of captured segment graphs), T = 1000, 256 samples in batches
-    of 128: the same mode at every step, the same cache statistics, samples
-    bitwise equal or within rtol 2e-5 / atol 5e-5, the launch checks through
-    replays, B1 and B4 inside captured graphs; ms/step, and over a 200-step
-    window (2 batches of 100 steps) the launch calls a step and the device's
-    busy share.  Then training: ``Trainer.fit`` at ``steps_per_call`` 1 and
-    16, and the steady step eager against graphed."""
+    """Each flagship chain with ``batches_per_call`` 1 (the eager loop, a
+    device read a step) and 2 (the resident chain: a trajectory one replay
+    of a graph whose conditional nodes take the decisions), T = 1000, 256
+    samples in batches of 128: the same mode at every step
+    (``last_modes``), the same cache statistics, samples bitwise equal, B1
+    and B4 counted through the replays; ms/step and samples/s (the resident
+    chain's without its first call's capture, timed apart); then one call
+    of 2 trajectories × ``WINDOW_STEPS`` steps, profiled: the launch API
+    calls a trajectory, the device-to-host copies a call (at most one for
+    the resident chain) and the device's busy share (where the profiler saw
+    every kernel); then two resident trajectories alone under
+    ``set_sync_debug_mode("error")`` (no read of the device) with their
+    device span over their wall time.  The uncached and score-level samples
+    are taken back to the time domain.  Then training."""
+    from fdtpu_torch.data import SyntheticDatamodule
     from fdtpu_torch.diffusion import VPScheduler
     from fdtpu_torch.models import ScoreModel, ScoreModelConfig, init_score_model
-    from fdtpu_torch.sampling import DiffusionSampler
+    from fdtpu_torch.ops import idft
+    from fdtpu_torch.sampling import DiffusionSampler, resident
 
     cfg = ScoreModelConfig(n_channels=1, max_len=FLAGSHIP["seq"], attention_impl="blockdiag")
     net = init_score_model(cfg, torch.Generator().manual_seed(0))
     scheduler = VPScheduler(fourier_noise_scaling=True).with_noise_scaling(cfg.max_len, "cuda")
     model = ScoreModel(config=cfg, network=net, scheduler=scheduler)
+    print(f"graphs: flagship {model.param_count()} parameters", flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        dm = SyntheticDatamodule(tmp, max_len=cfg.max_len, num_samples=1000,
+                                 fourier_transform=True, standardize=True)
+        dm.prepare_data()
+        dm.setup()
+        mean, std = dm.feature_mean_and_std
     layers = cfg.num_layers
     steps = NUM_STEPS * (NUM_SAMPLES // SAMPLE_BATCH)
     results = {}
@@ -1007,17 +964,30 @@ def graphs_phase(torch, bda, mha) -> dict:
                                         cache_kwargs=kwargs, batches_per_call=per_call, **options)
 
             sampler = make()
-            modes, undo = record_modes(level)
             torch.cuda.synchronize()
             bda.launches = mha.launches = 0
+            captures = []
+            real_capture = resident.Chain._capture
+
+            def timed_capture(self):
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                real_capture(self)
+                torch.cuda.synchronize()
+                captures.append(time.perf_counter() - t1)
+
+            resident.Chain._capture = timed_capture
             try:
                 t0 = time.perf_counter()
                 samples = sampler.sample(NUM_SAMPLES, NUM_STEPS,
                                          generator=torch.Generator(device="cuda").manual_seed(2))
                 torch.cuda.synchronize()
-                seconds = time.perf_counter() - t0
+                first_call = time.perf_counter() - t0
             finally:
-                undo()
+                resident.Chain._capture = real_capture
+            # The resident chain's first call captures its graph: its steps
+            # are timed without the capture.
+            seconds = first_call - sum(captures)
             b1, b4 = bda.launches, mha.launches
             stats = sampler.get_cache_stats()
             full = stats["full_steps"] if kwargs else steps
@@ -1033,47 +1003,89 @@ def graphs_phase(torch, bda, mha) -> dict:
                   f"graphs {name} x{per_call}: {b1} B1 launches for {full} full forwards")
             check(b4 == layers * b4_steps,
                   f"graphs {name} x{per_call}: {b4} B4 launches for {b4_steps} steps")
+            if name in ("uncached", "score"):
+                series = idft(torch.from_numpy(samples.cpu().numpy() * std + mean).float())
+                check(bool(torch.isfinite(series).all()),
+                      f"graphs {name}: de-standardized series not finite")
             run = dict(ms_per_step=1e3 * seconds / steps, samples_per_s=NUM_SAMPLES / seconds,
                        launches_b1=b1, launches_b4=b4)
             if per_call > 1:
+                run.update(capture_seconds=sum(captures),
+                           first_call_ms_per_step=1e3 * first_call / steps)
                 (chain,) = sampler._chains.values()
-                inside = [launched for _, launched in chain.runner.graphs.values()]
-                run.update(graphs=len(inside), replays=chain.runner.replays,
-                           b1_in_graphs=sum(1 for n in inside if n[0]),
-                           b4_in_graphs=sum(1 for n in inside if n[3]))
-                check(chain.runner.captures and run["replays"] > 0,
-                      f"graphs {name}: the grouped chain replayed no graph")
-                check(run["b1_in_graphs"] > 0, f"graphs {name}: no captured graph holds B1")
+                check(chain.loop is not None, f"graphs {name}: no trajectory graph was captured")
+                inside = [seg.launched for seg in chain.loop.branches]
+                run.update(branches=len(inside), b1_in_branches=sum(n[0] for n in inside),
+                           b4_in_branches=sum(n[3] for n in inside))
+                check(run["b1_in_branches"] > 0, f"graphs {name}: no branch holds B1")
                 if b4_steps:
-                    check(run["b4_in_graphs"] > 0, f"graphs {name}: no captured graph holds B4")
-            # The graphed window's first call captures its graphs: it is run
-            # once unprofiled; the eager window needs no warm-up.
+                    check(run["b4_in_branches"] > 0, f"graphs {name}: no branch holds B4")
+            # One call of two short trajectories, profiled (the resident
+            # chain's first call captures its graph: it is run once before).
             window = make()
+            window_steps = 2 * WINDOW_STEPS
+            b1_before = bda.launches
             prof = device_breakdown(
-                torch, f"graphs-{name}-x{per_call}-200-steps",
-                lambda: window.sample(2 * SAMPLE_BATCH, 100,
+                torch, f"graphs-{name}-x{per_call}-{window_steps}-steps",
+                lambda: window.sample(2 * SAMPLE_BATCH, WINDOW_STEPS,
                                       generator=torch.Generator("cuda").manual_seed(3)),
                 reps=1, top=3, warm_up=per_call > 1)
-            run.update(window_wall_ms_per_step=prof["wall_ms"] / 200,
-                       window_busy_share=prof["busy_share"],
-                       window_calls_per_step={k: v / 200 for k, v in prof["api_calls"].items()})
-            runs[per_call] = (samples, modes, stats, run)
+            # The profiler (CUPTI) may miss kernels of conditional bodies:
+            # the busy share stands only where it saw every B1 launch.
+            b1_window = (bda.launches - b1_before) // (2 if per_call > 1 else 1)
+            seen = sum(n for k, n in prof["records"].items() if "blockdiag_mha_fwd" in k)
+            complete = seen == b1_window
+            run.update(window_wall_ms_per_step=prof["wall_ms"] / window_steps,
+                       window_busy_share=prof["busy_share"] if complete else None,
+                       window_profiler_complete=complete,
+                       calls_per_trajectory={k: v / 2 for k, v in prof["api_calls"].items()},
+                       d2h_per_call=prof["d2h"])
+            if per_call > 1:
+                check(prof["d2h"] <= 1, f"graphs {name}: {prof['d2h']} device-to-host copies "
+                      "in a call of two resident trajectories")
+                run.update(resident_trajectories(torch, window))
+            runs[per_call] = (samples, sampler.last_modes, stats, run)
         (s1, m1, st1, r1), (s2, m2, st2, r2) = runs[1], runs[2]
-        diverged = [i for i, (a, b) in enumerate(zip(m1, m2)) if a != b]
-        line = dict(eager=r1, graphed=r2, steps_moded=len(m1),
-                    phase_seconds=time.perf_counter() - t_chain,
-                    first_mode_divergence=diverged[:1],
+        differ = [] if m1 is None else (m1 != m2).nonzero()[:1].tolist()
+        line = dict(eager=r1, resident=r2, modes_compared=0 if m1 is None else m1.numel(),
+                    phase_seconds=time.perf_counter() - t_chain, first_mode_divergence=differ,
                     max_abs_diff=float((s1 - s2).abs().max()),
                     bitwise_equal=bool(torch.equal(s1, s2)), cache_stats_equal=st1 == st2)
         print(f"graphs {name}", json.dumps(line), flush=True)
-        check(len(m1) == len(m2) and not diverged,
-              f"graphs {name}: modes diverge first at step {diverged[:1]}")
+        check((m1 is None) == (m2 is None) and not differ,
+              f"graphs {name}: modes diverge first at (batch, step) {differ}")
         check(st1 == st2, f"graphs {name}: cache statistics differ: {st1} vs {st2}")
-        check(line["bitwise_equal"] or bool(torch.allclose(s2, s1, rtol=2e-5, atol=5e-5)),
-              f"graphs {name}: samples differ by {line['max_abs_diff']:.3g}")
+        check(line["bitwise_equal"], f"graphs {name}: samples differ by {line['max_abs_diff']:.3g}")
         results[name] = line
     results["train"] = graphs_train(torch, bda)
     return results
+
+
+def resident_trajectories(torch, sampler) -> dict:
+    """Two trajectories of ``sampler``'s resident chain back to back, alone
+    (no cross-batch preparation, no end-of-call read), under
+    ``set_sync_debug_mode("error")``: any read of the device raises.  Their
+    device span (CUDA events) over their host wall time is the share of the
+    wall the device held work; nothing the host does is inside the span."""
+    (chain,) = sampler._chains.values()
+    chain.begin_call(torch.Generator("cuda").manual_seed(4))
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        start.record()
+        chain.run_resident()
+        chain.run_resident()
+        end.record()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    wall_ms = 1e3 * (time.perf_counter() - t0)
+    chain.read()
+    span = start.elapsed_time(end)
+    return dict(d2h_per_trajectory=0, trajectory_device_ms=span / 2,
+                trajectory_wall_ms=wall_ms / 2, device_span_share=span / wall_ms)
 
 
 def graphs_train(torch, bda) -> dict:
@@ -1165,7 +1177,65 @@ def graphs_train(torch, bda) -> dict:
         out["graph_launches"] = dict(zip(("b1", "b2", "b3", "b4"), map(sum, zip(*inside))))
         check(all(out["graph_launches"][k] > 0 for k in ("b1", "b2", "b3")),
               f"graphs train: the step graph lacks a kernel: {out['graph_launches']}")
+        out["resident"] = graphs_train_resident(torch, bda, cfg, scheduler, dm, tmp)
     print("graphs train", json.dumps(out), flush=True)
+    return out
+
+
+def graphs_train_resident(torch, bda, cfg, scheduler, dm, tmp) -> dict:
+    """``Trainer(epochs_per_call=2)``, the device-resident epoch loop, over
+    2 × 2 epochs: two calls, the first capturing its graph (2 epochs, the
+    steps unrolled), the second a replay; each call's wall, the train
+    samples/s of the replayed call (against the host loop's above), finite
+    and falling losses, and B1, B2 counted through the replays."""
+    from fdtpu_torch.models import ScoreModel, init_score_model
+    from fdtpu_torch.train import Trainer, get_training_params
+    from fdtpu_torch.train import trainer as trainer_mod
+
+    epochs, per_call = 2 * TRAIN_EPOCHS, TRAIN_EPOCHS
+    calls = []
+    real_run = trainer_mod.ResidentEpochs.run
+
+    def timed_run(self, first_epoch, n):
+        t0 = time.perf_counter()
+        result = real_run(self, first_epoch, n)
+        calls.append(dict(epochs=n, seconds=time.perf_counter() - t0, graphs=len(self.graphs)))
+        return result
+
+    model = ScoreModel(config=cfg, network=init_score_model(cfg, torch.Generator().manual_seed(0)),
+                       scheduler=scheduler,
+                       num_training_steps=get_training_params(dm, epochs)["num_training_steps"])
+    trainer = Trainer(max_epochs=epochs, run_dir=tmp, run_id="resident", seed=42,
+                      epochs_per_call=per_call)
+    trainer_mod.ResidentEpochs.run = timed_run
+    torch.cuda.synchronize()
+    bda.launches = bda.launches_bwd = bda.launches_trainable = 0
+    try:
+        t0 = time.perf_counter()
+        trainer.fit(model, dm)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    finally:
+        trainer_mod.ResidentEpochs.run = real_run
+    records = [json.loads(line) for line in trainer.metrics_path.read_text().splitlines()]
+    val = [r["val/loss"] for r in records if "val/loss" in r]
+    train = [r["train/loss_epoch"] for r in records if "train/loss_epoch" in r]
+    n_train, n_val = len(dm.train_dataloader()), len(dm.val_dataloader())
+    layers = cfg.num_layers
+    out = dict(epochs=epochs, epochs_per_call=per_call, fit_seconds=seconds, calls=calls,
+               samples_per_s_replayed_call=per_call * TRAIN_SAMPLES / calls[-1]["seconds"],
+               capture_seconds=calls[0]["seconds"] - calls[-1]["seconds"],
+               val_losses=val, train_losses=train, best_val_loss=trainer.best_val_loss,
+               launches=(bda.launches, bda.launches_bwd, bda.launches_trainable))
+    print("graphs train resident", json.dumps(out), flush=True)
+    check(len(calls) == 2 and calls[0]["graphs"] == calls[1]["graphs"] == 1,
+          f"graphs train resident: calls {calls}")
+    check(all(math.isfinite(v) for v in val + train), "graphs train resident: a loss is not finite")
+    check(train[-1] < train[0], f"graphs train resident: train loss not falling: {train}")
+    check(out["launches"] == (layers * epochs * (n_train + n_val), layers * epochs * n_train,
+                              layers * epochs * n_train),
+          f"graphs train resident: launches {out['launches']} for {epochs} epochs of "
+          f"{n_train} + {n_val} batches x {layers} layers")
     return out
 
 
@@ -1593,6 +1663,7 @@ def main() -> int:
         from fdtpu_torch.kernels import attention as mha
         from fdtpu_torch.kernels import blockdiag_attention as bda
         from fdtpu_torch.kernels import build
+        from fdtpu_torch.utils import conditional
     except ImportError as exc:
         print(f"chip_smoke: fdtpu_torch is not importable here ({exc})", file=sys.stderr)
         return 2
@@ -1605,7 +1676,7 @@ def main() -> int:
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}", flush=True)
     t0 = time.perf_counter()
-    build.build([bda.SOURCE, bda.SOURCE_BWD, mha.SOURCE], verbose=True)
+    build.build([bda.SOURCE, bda.SOURCE_BWD, mha.SOURCE, conditional.SOURCE], verbose=True)
     print(f"build: {time.perf_counter() - t0:.1f} s", flush=True)
 
     def timed(name, fn, *args):
@@ -1619,7 +1690,7 @@ def main() -> int:
     bwd_results = timed("kernel_bwd", bwd_kernel_phase, torch, bda)
     trainable = timed("trainable", trainable_phase, torch, bda)
     timed("head_dim_sweep", head_dim_sweep, torch, bda, mha)
-    chains = timed("slice", slice_phase, torch, bda)
+    timed("slice", slice_phase, torch, bda)
     levels = timed("levels", levels_phase, torch, bda, mha)
     freq_chains = timed("freq", freq_options_phase, torch, bda, mha)
     graphed = timed("graphs", graphs_phase, torch, bda, mha)
@@ -1631,7 +1702,7 @@ def main() -> int:
     level_chains = [c for c in levels.values() if isinstance(c, dict)]
     level_chains += list(freq_chains.values())
     level_chains += [run for name, line in graphed.items() if name != "train"
-                     for run in (line["eager"], line["graphed"])]
+                     for run in (line["eager"], line["resident"])]
 
     def kernel_record(name, source, replaces, launches, results):
         # The head case is the first float32 one; "cases" keeps every case's times.
@@ -1652,7 +1723,7 @@ def main() -> int:
     records = [
         kernel_record("blockdiag_mha", "fdtpu_torch/kernels/csrc/blockdiag_attention.cu",
                       "fdtpu/kernels/blockdiag_attention.py:221",
-                      sum(c["launches"] for c in chains.values()) + train["launches"]
+                      train["launches"]
                       + sum(c["launches_b1"] for c in level_chains) + evaluation["launches"]
                       + sum(c["b1"] for c in cli_runs), kernel_results),
         kernel_record("fused_mha", "fdtpu_torch/kernels/csrc/fused_attention.cu",

@@ -20,15 +20,20 @@
 The state is a dataclass of tensors on the sampling device.  Its float
 statistics (``err_acc``, ``drift_rate``, ``delta_tok``, ``eps_norm_ref`` …)
 are float32 tensors, as in the JAX package, so every decision near τ₀ is
-taken on the same float32 values; the step counters and the ``cold`` flag are
-host values, and each policy reads the device at most once a step.  Each
-policy and update is split into its device arithmetic (``*_terms``,
-:func:`kv_state_update`) and its host decision or counters, so that a
-captured graph can run the first while the host keeps the second
-(:mod:`fdtpu_torch.sampling.graphed`).  Fields a level does not use are
-zero-size placeholders with the JAX package's shapes.
-The ring's live count ``hist_len`` is a device tensor, so a FreqCa
-prediction reads nothing back from the device.
+taken on the same float32 values.  The step counters and the ``cold`` flag
+(:data:`COUNTERS`) are host ints at a chain's boundary; inside a chain they
+are one int64 device vector, as the JAX ``CacheState`` keeps them on the
+device (:func:`counters_of`, :func:`counter_view`, :func:`with_counters`),
+so that the resident chain (:mod:`fdtpu_torch.sampling.resident`) reads
+nothing from the device.  Each decision has one definition that returns a
+0-d int64 tensor (:func:`score_skip_decision`, :func:`token_policy`,
+:func:`event_policy`, :func:`macro_mode`, :func:`kv_ring_due`), and the
+counters one update (:func:`count_mode`); both take the counters as host ints
+or as 0-d tensors alike.  The eager chain reads the decision with one
+``.item()``; the resident chain hands it to a conditional graph node.
+Fields a level does not use are zero-size placeholders with the JAX
+package's shapes.  The ring's live count ``hist_len`` is a device tensor, so
+a FreqCa prediction reads nothing back from the device.
 """
 
 from __future__ import annotations
@@ -254,28 +259,62 @@ def init_cache_state(
     )
 
 
+# ----------------------------------------------------------------- counters
+# The step counters of CacheState, in the order of a chain's device vector.
+COUNTERS = ("step", "last_full_step", "cold", "recompute_count", "cache_hit_count",
+            "full_steps", "mixed_steps", "cached_steps")
+
+
+def counters_of(state: CacheState, device=None) -> torch.Tensor:
+    """The state's counters as an int64 vector on ``device`` (a host copy)."""
+    return torch.tensor([int(getattr(state, n)) for n in COUNTERS], dtype=torch.int64,
+                        device=device)
+
+
+def counter_view(state: CacheState, counters: torch.Tensor) -> CacheState:
+    """The state with each counter a 0-d view into ``counters`` (a chain's
+    vector, :data:`COUNTERS` order)."""
+    return state.replace(**{n: counters[i] for i, n in enumerate(COUNTERS)})
+
+
+def with_counters(state: CacheState, values) -> CacheState:
+    """The state with host counters from ``values`` (:data:`COUNTERS`
+    order, read from a chain's vector)."""
+    host = {n: int(v) for n, v in zip(COUNTERS, values)}
+    host["cold"] = bool(host["cold"])
+    return state.replace(**host)
+
+
+def _on(value, device) -> torch.Tensor:
+    """A host value as a tensor on ``device``; a tensor as it is."""
+    return value if isinstance(value, torch.Tensor) else torch.tensor(value, device=device)
+
+
 # ----------------------------------------------------------------- policies
+# Each decision takes the counters as host ints or 0-d device tensors and
+# returns a 0-d int64 tensor (a bool tensor for the *_due parts).
 def macro_policy(
     pp: PolicyParams, state: CacheState, max_len: int, device=None
-) -> tuple[int, torch.Tensor, int]:
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The reference's live KV policy: step 0 → FULL; every ``500 if R < 100
     else R`` global steps → MIXED over the first min(2K, T) tokens;
-    otherwise → CACHED.  Decided on the host.  Returns ``(mode, mask (T,)
-    bool, number of masked tokens)``."""
-    mode, count = macro_mode(pp, state, max_len)
-    return mode, torch.arange(max_len, device=device) < count, count
+    otherwise → CACHED.  Returns ``(mode, mask (T,) bool, number of masked
+    tokens)``; the mask is a device comparison against the count."""
+    mode, count = macro_mode(pp, state, max_len, device)
+    return mode, torch.arange(max_len, device=count.device) < count, count
 
 
-def macro_mode(pp: PolicyParams, state: CacheState, max_len: int) -> tuple[int, int]:
+def macro_mode(pp: PolicyParams, state: CacheState, max_len: int,
+               device=None) -> tuple[torch.Tensor, torch.Tensor]:
     """:func:`macro_policy`'s mode and count of recomputed tokens (the mask
     is the first ``count`` tokens)."""
-    step = state.step
+    step = _on(state.step, device)
     interval = 500 if pp.R < 100 else pp.R
-    if step == 0:
-        return MODE_FULL, max_len
-    if step % interval == 0:
-        return MODE_MIXED, min(2 * min(pp.K, max_len), max_len)
-    return MODE_CACHED, 0
+    mode = torch.where(step == 0, MODE_FULL,
+                       torch.where(step % interval == 0, MODE_MIXED, MODE_CACHED))
+    refresh = min(2 * min(pp.K, max_len), max_len)
+    count = torch.where(mode == MODE_FULL, max_len, torch.where(mode == MODE_MIXED, refresh, 0))
+    return mode.to(torch.int64), count.to(torch.int64)
 
 
 def event_policy_terms(
@@ -285,8 +324,8 @@ def event_policy_terms(
     x: torch.Tensor,
     probe_u: Optional[torch.Tensor] = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """The event policy's device arithmetic: the recompute mask (T,) bool and
-    ``(warn, count)`` int64, the mean drift past τ_warn and the masked count."""
+    """The event policy's token mask (T,) bool and its warning: the mean
+    drift past τ_warn."""
     max_len = x.shape[1]
     if cfg.energy_weighting:
         energy = torch.mean(x**2, dim=(0, 2))  # (T,)
@@ -298,14 +337,20 @@ def event_policy_terms(
     )
     if cfg.resolved_random_probe_ratio > 0.0:
         mask = mask | (probe_u < pp.random_probe_ratio)
-    is_warn = torch.mean(state.delta_tok) > pp.tau_warn
-    return mask, torch.stack([is_warn.to(torch.int64), mask.sum()])
+    return mask, torch.mean(state.delta_tok) > pp.tau_warn
 
 
-def event_refresh_due(pp: PolicyParams, state: CacheState) -> bool:
-    """The event policy's full refresh decided by the host counters alone:
-    step 0 or the interval R expired."""
-    return state.step == 0 or state.step - state.last_full_step >= pp.R
+def event_refresh_due(pp: PolicyParams, state: CacheState):
+    """The event policy's full refresh by the counters: step 0 or the
+    interval R expired."""
+    return (state.step == 0) | (state.step - state.last_full_step >= pp.R)
+
+
+def event_mode(due, warn: torch.Tensor, count: torch.Tensor) -> torch.Tensor:
+    """FULL when due or warned, else MIXED if any token is masked, else
+    CACHED."""
+    return torch.where(due | warn, MODE_FULL,
+                       torch.where(count > 0, MODE_MIXED, MODE_CACHED)).to(torch.int64)
 
 
 def event_policy(
@@ -314,28 +359,18 @@ def event_policy(
     state: CacheState,
     x: torch.Tensor,
     probe_u: Optional[torch.Tensor] = None,
-) -> tuple[int, torch.Tensor, int]:
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Event-driven KV policy: the tokens whose energy-weighted CRF drift
     exceeds τ₀, ∪ the K lowest-frequency tokens, ∪ a random probe fraction
     (``probe_u`` (T,) uniforms, read when the probe ratio is positive) are
     recomputed (MIXED, or CACHED if none); a full refresh at step 0, every R
-    steps, or when the mean drift exceeds τ_warn.  One host read unless the
-    step counters decide a refresh.  Returns ``(mode, mask, number of masked
-    tokens)``."""
-    max_len = x.shape[1]
-    ones = torch.ones((max_len,), dtype=torch.bool, device=x.device)
-    if event_refresh_due(pp, state):
-        return MODE_FULL, ones, max_len
-    mask, flags = event_policy_terms(cfg, pp, state, x, probe_u)
-    mode, count = event_mode(*flags.tolist(), max_len)
-    return mode, (ones if mode == MODE_FULL else mask), count
-
-
-def event_mode(warn: int, count: int, max_len: int) -> tuple[int, int]:
-    """Mode and recomputed-token count from the event policy's read flags."""
-    if warn:
-        return MODE_FULL, max_len
-    return (MODE_MIXED if count else MODE_CACHED), count
+    steps, or when the mean drift exceeds τ_warn.  Returns ``(mode, mask,
+    number of masked tokens)``."""
+    mask, warn = event_policy_terms(cfg, pp, state, x, probe_u)
+    mode = event_mode(event_refresh_due(pp, state), warn, mask.sum())
+    full = mode == MODE_FULL
+    mask = mask | full
+    return mode, mask, mask.sum()
 
 
 def effective_tau(cfg: E2CRFConfig, pp: PolicyParams, state: CacheState) -> torch.Tensor:
@@ -345,21 +380,17 @@ def effective_tau(cfg: E2CRFConfig, pp: PolicyParams, state: CacheState) -> torc
     return pp.tau_0 / torch.clamp(state.overrun, min=1.0)
 
 
-def score_skip_decision(cfg: E2CRFConfig, pp: PolicyParams, state: CacheState) -> bool:
-    """True → run the network this step.
+def score_skip_decision(cfg: E2CRFConfig, pp: PolicyParams, state: CacheState) -> torch.Tensor:
+    """1 → run the network this step, 0 → skip it (the JAX predicate that
+    ``lax.cond`` takes).
 
     Run it on a cold cache, on the calibration step right after a cold start
     (drift rate still 0), when the interval R expired, or when the
-    accumulated predicted drift reached the budget.  The JAX package takes
-    this branch inside ``lax.cond``; here it costs one host read of the
-    float32 comparison, and none when the host-side conditions decide."""
+    accumulated predicted drift reached the budget."""
     since = state.step - state.last_full_step
-    if state.cold or since >= pp.R:
-        return True
-    decide = state.err_acc >= effective_tau(cfg, pp, state)
-    if since == 1:
-        decide = decide | (state.drift_rate == 0)
-    return bool(decide)
+    calibration = (state.drift_rate == 0) & (since == 1)
+    budget = state.err_acc >= effective_tau(cfg, pp, state)
+    return (budget | calibration | (since >= pp.R) | (state.cold != 0)).to(torch.int64)
 
 
 def token_policy_terms(
@@ -367,13 +398,10 @@ def token_policy_terms(
     pp: PolicyParams,
     state: CacheState,
     x: torch.Tensor,
-    step: Union[int, torch.Tensor, None] = None,
-) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The token policy's device arithmetic: the energy-weighted drift
-    ``w_drift`` (T,), its mean, and ``(calibration, skip)`` int64 — every
-    per-token rate 0, and the predicted accumulated error within the budget.
-    ``step`` is the global step, a host int (default ``state.step``) or a
-    0-d device tensor."""
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The token policy's arithmetic: the energy-weighted drift ``w_drift``
+    (T,), its mean, the calibration flag (every per-token rate 0) and the
+    skip flag (the predicted accumulated error within the budget)."""
     max_len = x.shape[1]
     if cfg.energy_weighting:
         energy = torch.mean(x.float() ** 2, dim=tuple(i for i in range(x.ndim) if i != 1))
@@ -382,42 +410,72 @@ def token_policy_terms(
         energy_w = torch.ones((max_len,), dtype=torch.float32, device=x.device)
     w_drift = state.delta_tok.float() * energy_w
     mean_drift = torch.mean(w_drift)
-    age_next = ((state.step if step is None else step) - state.last_tok + 1).float()
+    age_next = (state.step - state.last_tok + 1).float()
     skip = torch.mean(w_drift * age_next) <= effective_tau(cfg, pp, state)
     calibration = torch.sum(state.delta_tok) == 0
-    return w_drift, mean_drift, torch.stack([calibration, skip]).to(torch.int64)
+    return w_drift, mean_drift, calibration, skip
 
 
-def token_refresh_due(pp: PolicyParams, state: CacheState) -> bool:
-    """The token level's FULL step decided by the host alone: a cold cache or
-    the interval R expired."""
-    return state.cold or state.step - state.last_full_step >= pp.R
+def token_refresh_due(pp: PolicyParams, state: CacheState):
+    """The token level's FULL step by the counters: a cold cache or the
+    interval R expired."""
+    return (state.cold != 0) | (state.step - state.last_full_step >= pp.R)
 
 
-def token_mode(state: CacheState, calibration: int, skip: int) -> int:
-    """The mode of a step the host counters did not decide, from the read
-    flags: FULL on the calibration step right after a refresh, else SKIP
-    or TOPK."""
-    if state.step - state.last_full_step == 1 and calibration:
-        return TOKEN_FULL
-    return TOKEN_SKIP if skip else TOKEN_TOPK
+def token_mode(pp: PolicyParams, state: CacheState, calibration: torch.Tensor,
+               skip: torch.Tensor) -> torch.Tensor:
+    """FULL when due or on the calibration step right after a refresh, else
+    SKIP within the budget, else TOPK."""
+    since = state.step - state.last_full_step
+    full = token_refresh_due(pp, state) | (calibration & (since == 1))
+    return torch.where(full, TOKEN_FULL,
+                       torch.where(skip, TOKEN_SKIP, TOKEN_TOPK)).to(torch.int64)
 
 
 def token_policy(
     cfg: E2CRFConfig, pp: PolicyParams, state: CacheState, x: torch.Tensor
-) -> tuple[int, torch.Tensor, torch.Tensor]:
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Step mode of the token level: TOKEN_FULL on a cold cache, on the
     calibration step right after a refresh whose per-token rates are all 0,
     or when R expired; TOKEN_SKIP while the predicted accumulated error
     ``mean(w_drift × (age + 1))`` stays within the budget; else TOKEN_TOPK.
 
     Returns ``(mode, w_drift (T,), mean_drift ())``, float32, with the
-    energy-weighted drift ``w_drift``.  One host read unless the host
-    counters decide a refresh."""
-    w_drift, mean_drift, flags = token_policy_terms(cfg, pp, state, x)
-    if token_refresh_due(pp, state):
-        return TOKEN_FULL, w_drift, mean_drift
-    return token_mode(state, *flags.tolist()), w_drift, mean_drift
+    energy-weighted drift ``w_drift``."""
+    w_drift, mean_drift, calibration, skip = token_policy_terms(cfg, pp, state, x)
+    return token_mode(pp, state, calibration, skip), w_drift, mean_drift
+
+
+def kv_ring_due(cfg: E2CRFConfig, state: CacheState, device=None) -> torch.Tensor:
+    """Whether this KV-level step adds an entry to FreqCa's ring."""
+    step = _on(state.step, device)
+    return (step % cfg.freq_decomp_interval == 0) & cfg.use_freqca
+
+
+def count_mode(state: CacheState, level: str, mode, max_len: int, n_recomputed=None):
+    """The counters after a step in ``mode`` (the JAX bodies' counting):
+    at the score level ``mode`` is the decision (1 refresh, 0 skip); a full
+    step takes ``last_full_step`` to ``step`` and (score and token level)
+    clears ``cold``; ``n_recomputed`` is the MIXED step's masked count at the
+    KV level (the token budget at the token level's TOPK).  The step itself
+    is advanced by the caller."""
+    if level == "score":
+        full, mixed, cached = mode == 1, mode == 2, mode == 0
+    elif level == "token":
+        full, mixed, cached = mode == TOKEN_FULL, mode == TOKEN_TOPK, mode == TOKEN_SKIP
+    else:
+        full, mixed, cached = mode == MODE_FULL, mode == MODE_MIXED, mode == MODE_CACHED
+    n = full * max_len + (0 if n_recomputed is None else mixed * n_recomputed)
+    cold = state.cold if level == "kv" else state.cold * (full == 0)
+    return state.replace(
+        last_full_step=state.last_full_step + full * (state.step - state.last_full_step),
+        cold=cold,
+        recompute_count=state.recompute_count + n,
+        cache_hit_count=state.cache_hit_count + max_len - n,
+        full_steps=state.full_steps + full,
+        mixed_steps=state.mixed_steps + mixed,
+        cached_steps=state.cached_steps + cached,
+    )
 
 
 # Per-measurement floor on the predicted budget in the overrun ratio.
@@ -471,8 +529,8 @@ def record_guard_measurement(
 def update_after_forward(
     cfg: E2CRFConfig,
     state: CacheState,
-    mode: int,
-    n_masked: int,
+    mode,
+    n_masked,
     kv_new: tuple[torch.Tensor, torch.Tensor],
     crf: torch.Tensor,
     timestep: Optional[torch.Tensor] = None,
@@ -482,15 +540,12 @@ def update_after_forward(
     ``n_masked`` is the number of tokens MODE_MIXED recomputed.  With
     ``use_freqca``, every ``freq_decomp_interval`` global steps the CRF's
     low and high parts at ``timestep`` go into the history ring (shifted
-    left, ``hist_len`` capped at ``max_history``)."""
+    left, ``hist_len`` capped at ``max_history``); the ring is decided on the
+    host here (one read), on the device in a chain."""
     check_level(cfg)
-    state = kv_state_update(cfg, state, kv_new, crf, timestep, kv_ring_due(cfg, state))
-    return count_kv_step(state, mode, n_masked, crf.shape[1])
-
-
-def kv_ring_due(cfg: E2CRFConfig, state: CacheState) -> bool:
-    """Whether this KV-level step adds an entry to FreqCa's ring."""
-    return cfg.use_freqca and state.step % cfg.freq_decomp_interval == 0
+    ring = bool(kv_ring_due(cfg, state, crf.device))
+    state = kv_state_update(cfg, state, kv_new, crf, timestep, ring)
+    return count_mode(state, "kv", mode, crf.shape[1], n_masked)
 
 
 def kv_state_update(
@@ -501,8 +556,8 @@ def kv_state_update(
     timestep: Optional[torch.Tensor],
     ring: bool,
 ) -> CacheState:
-    """The device half of :func:`update_after_forward`: drift, store, CRF
-    and (``ring``) FreqCa's ring."""
+    """The tensors of :func:`update_after_forward`: drift, store, CRF and
+    (``ring``) FreqCa's ring."""
     delta = torch.linalg.vector_norm((crf - state.crf_prev).to(state.delta_tok.dtype), dim=-1)
     freqca = {}
     if ring:
@@ -520,19 +575,6 @@ def kv_state_update(
         )
     return state.replace(
         k=kv_new[0], v=kv_new[1], crf_prev=crf, delta_tok=torch.mean(delta, dim=0), **freqca
-    )
-
-
-def count_kv_step(state: CacheState, mode: int, n_masked: int, max_len: int) -> CacheState:
-    """The host half of :func:`update_after_forward`: the step counters."""
-    n_recomputed = {MODE_FULL: max_len, MODE_MIXED: n_masked}.get(mode, 0)
-    return state.replace(
-        last_full_step=state.step if mode == MODE_FULL else state.last_full_step,
-        recompute_count=state.recompute_count + n_recomputed,
-        cache_hit_count=state.cache_hit_count + max_len - n_recomputed,
-        full_steps=state.full_steps + (mode == MODE_FULL),
-        mixed_steps=state.mixed_steps + (mode == MODE_MIXED),
-        cached_steps=state.cached_steps + (mode == MODE_CACHED),
     )
 
 
@@ -554,17 +596,26 @@ def predict_crf_freqca(cfg: E2CRFConfig, state: CacheState, t_val: torch.Tensor)
     return torch.where(state.hist_len >= 2, state.crf_low + high, state.crf_prev)
 
 
-def cache_stats(state: CacheState) -> dict[str, Any]:
-    """Summary statistics; the same keys as the JAX package's."""
+def stat_tensor(state: CacheState) -> torch.Tensor:
+    """The device values :func:`cache_stats` reads, as one float64 vector."""
+    ref, cold = state.eps_norm_ref, state.eps_norm_cold
+    growth = torch.where(cold > 0, ref / torch.clamp(cold, min=1e-6), 0.0)
+    return torch.stack([_on(v, ref.device).double() for v in (
+        state.guard_measurements, state.realized_err_sum, state.predicted_err_sum,
+        state.realized_err_max, state.overrun, ref.max(), growth.max())])
+
+
+def cache_stats(state: CacheState, values: Optional[list] = None) -> dict[str, Any]:
+    """Summary statistics; the same keys as the JAX package's.  One device
+    read (:func:`stat_tensor`), unless ``values`` holds what it reads."""
+    if values is None:
+        values = stat_tensor(state).tolist()
+    n_guard, realized_sum, predicted_sum, realized_max, overrun, peak, growth = values
+    n_guard = int(n_guard)
     recompute = state.recompute_count
     hits = state.cache_hit_count
     total = recompute + hits
     total_steps = state.full_steps + state.mixed_steps + state.cached_steps
-    n_guard = int(state.guard_measurements)
-    realized_sum = float(state.realized_err_sum)
-    predicted_sum = float(state.predicted_err_sum)
-    ref, cold = state.eps_norm_ref, state.eps_norm_cold
-    growth = torch.where(cold > 0, ref / torch.clamp(cold, min=1e-6), 0.0)
     return {
         "cache_hit_ratio": hits / total if total else 0.0,
         "recompute_count": recompute,
@@ -577,24 +628,23 @@ def cache_stats(state: CacheState) -> dict[str, Any]:
         "guard_measurements": n_guard,
         "realized_err_mean": realized_sum / n_guard if n_guard else 0.0,
         "predicted_err_mean": predicted_sum / n_guard if n_guard else 0.0,
-        "realized_err_max": float(state.realized_err_max),
+        "realized_err_max": realized_max,
         "budget_overrun_ratio": (
             realized_sum / max(predicted_sum, n_guard * GUARD_PREDICTED_FLOOR)
             if n_guard
             else 0.0
         ),
-        "overrun_mark": float(state.overrun),
-        "eps_norm_peak": float(ref.max()),
-        "eps_norm_scale": _eps_norm_scale(state),
-        "eps_norm_growth": float(growth.max()),
+        "overrun_mark": overrun,
+        "eps_norm_peak": peak,
+        "eps_norm_scale": _eps_norm_scale(state, peak),
+        "eps_norm_growth": growth,
     }
 
 
-def _eps_norm_scale(state: CacheState) -> float:
+def _eps_norm_scale(state: CacheState, peak: float) -> float:
     """Peak refresh-time ε̂ norm relative to the unit-noise expectation: the
     score level norms the whole (B, T, C) ε̂, the token level each token over
     (B, C)."""
-    peak = float(state.eps_norm_ref.max())
     numel = state.eps_hat.numel()
     if numel == 0 or peak == 0.0:
         return 0.0

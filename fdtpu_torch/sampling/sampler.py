@@ -1,10 +1,10 @@
 """Reverse-diffusion sampling (port of ``fdtpu/sampling/sampler.py:99-635,
 784-1151``).
 
-The JAX package compiles the whole trajectory into one ``lax.scan``; here the
-reverse Euler–Maruyama chain is a Python loop over steps, and each step's
-branch of the E²-CRF cache is decided on the host from the float32 cache
-state (at most one device read a step):
+The JAX package compiles the whole trajectory into one ``lax.scan``.  Here a
+chain is a :class:`~fdtpu_torch.sampling.resident.Chain`: each step's
+decision of the E²-CRF cache, taken on the device from the float32 cache
+state and the device counters, picks one of the step's branches:
 
 * score level: run the network (refresh) or rebuild the score from the
   extrapolated ε̂ (skip);
@@ -13,25 +13,28 @@ state (at most one device read a step):
   extrapolated) or SKIP;
 * KV level: the cached forward in the mode of the macro or event policy.
 
+``sample_chain`` and ``batches_per_call=1`` run the eager loop (one device
+read a step, of the branch); ``batches_per_call > 1`` runs each trajectory
+as one graph with the branches taken on the device.  This module holds the
+steps' arithmetic that both share.
+
 The score level's skip predictor is a Taylor extrapolation of ε̂
 (``eps_order``) or FreqCa (``eps_predictor="freqca"``: the low-frequency part
 of the last refresh plus a Hermite extrapolation of the high-frequency parts
 of the last ``max_history`` refreshes); the KV level keeps FreqCa's CRF
 history with ``use_freqca``.  FreSca (``use_fresca``) rescales each step's
 score by frequency band, at every level, after the cache has taken what it
-keeps.  Neither reads the device: a skip step's one read stays the skip
-decision.
-
-The token and KV levels update the cache's K/V store in place (the JAX
-package returns a new one); a state handed to ``sample_chain`` is updated.
+keeps.  Neither reads the device.
 
 Noise can be injected: ``sample_chain`` takes ``step_noise`` of shape
 ``(num_steps, B, T, C)`` and ``probe_noise`` ``(num_steps, T)`` (the uniforms
 of the random probes, token and KV levels), and ``DiffusionSampler.sample``
 takes ``prior_noise`` ``(N, T, C)``, ``step_noise`` ``(num_steps, N, T, C)``
 and ``probe_noise`` ``(num_batches, num_steps, T)``; otherwise the noise is
-drawn from a ``torch.Generator``.  JAX and torch random streams never match,
-so replaying a JAX chain means handing its draws in.
+drawn from a ``torch.Generator``: a step draws its probe uniforms (token
+level every step, used at TOPK; KV event level with probes), then its
+noise.  JAX and torch random streams never match, so replaying a JAX chain
+means handing its draws in.
 
 Reference parity kept on purpose: remainder-dropping batch count (quirk Q6)
 and cache persistence across batches with a global step counter, the cache
@@ -56,14 +59,9 @@ from fdtpu_torch.cache.e2crf import (
     PolicyParams,
     cache_stats,
     check_level,
-    event_policy,
     guard_relative_error,
     init_cache_state,
-    macro_policy,
     record_guard_measurement,
-    score_skip_decision,
-    token_policy,
-    update_after_forward,
 )
 from fdtpu_torch.diffusion.sde import SDE
 from fdtpu_torch.models.score_models import (
@@ -132,26 +130,29 @@ def eps_predict(
     return pred
 
 
+def _since(c: CacheState, since: Optional[torch.Tensor], like: torch.Tensor) -> torch.Tensor:
+    """``step − last_full_step``: ``since`` (a chain's 0-d device value) or
+    the state's counters, as a fill (no copy from the host)."""
+    if since is not None:
+        return since
+    return torch.full((), c.step - c.last_full_step, dtype=torch.int64, device=like.device)
+
+
 def _refresh(network, c: CacheState, cfg: E2CRFConfig, pp: PolicyParams, x, t, t_batch, std,
-             since=None):
+             since: Optional[torch.Tensor] = None):
     """Full step: run the network, measure the drift against what a skip
     would have predicted, and roll the ε̂ history (and FreqCa's ring).
-    ``since`` is ``step − last_full_step``: the host's counters by default,
-    a 0-d int64 device tensor in a captured graph.  The step counters are
-    left to :func:`_count_refresh`."""
+    ``since`` as in :func:`_since`.  The step counters are left to the chain
+    (:func:`~fdtpu_torch.cache.e2crf.count_mode`)."""
     score = network(x, t_batch)
     eps_new = -std[..., None] * score
     denom = torch.linalg.vector_norm(eps_new) + 1e-8
     # Trajectory noise scale: high-water mark of the refresh-time ‖ε̂‖.
     norm_ref = torch.maximum(c.eps_norm_ref, denom.to(x.dtype))
     zero = torch.zeros_like(c.eps_gap)
-    # A device value on both paths, so that the division below is the same
-    # operation eager and captured (CUDA divides by a host scalar through
-    # its reciprocal).
-    if since is None:
-        steps_since = torch.full_like(zero, max(c.step - c.last_full_step, 1))
-    else:
-        steps_since = torch.clamp(since, min=1).to(zero.dtype)
+    # A device value, so that the division below is the JAX package's
+    # (CUDA divides by a host scalar through its reciprocal).
+    steps_since = torch.clamp(_since(c, since, x), min=1).to(zero.dtype)
     if c.cold:
         rel = drift_rate = zero
     else:
@@ -193,25 +194,10 @@ def _refresh(network, c: CacheState, cfg: E2CRFConfig, pp: PolicyParams, x, t, t
     return score, c, trace
 
 
-def _count_refresh(c: CacheState, max_len: int) -> CacheState:
-    """The host counters of a full step (score and token level)."""
-    return c.replace(last_full_step=c.step, cold=False, full_steps=c.full_steps + 1,
-                     recompute_count=c.recompute_count + max_len)
-
-
-def _count_skip(c: CacheState, max_len: int) -> CacheState:
-    """The host counters of a skipped step (score and token level)."""
-    return c.replace(cached_steps=c.cached_steps + 1, cache_hit_count=c.cache_hit_count + max_len)
-
-
-def _skip(c: CacheState, cfg: E2CRFConfig, t, std, since=None):
+def _skip(c: CacheState, cfg: E2CRFConfig, t, std, since: Optional[torch.Tensor] = None):
     """Skipped step: rebuild the score from the predicted noise (``since``
-    as in :func:`_refresh`; the counters are left to :func:`_count_skip`)."""
-    if since is None:
-        ahead = float(c.step - c.last_full_step + 1)
-    else:
-        ahead = (since + 1).to(c.eps_gap.dtype)
-    eps = eps_predict(c, ahead, cfg, t)
+    as in :func:`_since`)."""
+    eps = eps_predict(c, (_since(c, since, std) + 1).to(c.eps_gap.dtype), cfg, t)
     score = -eps / std[..., None]
     return score, c.replace(err_acc=c.err_acc + c.drift_rate)
 
@@ -267,21 +253,12 @@ def _topk_rows(priority: torch.Tensor, budget: int) -> torch.Tensor:
     return torch.topk(key * n + rank, budget).indices
 
 
-def _token_step(network, c: CacheState, cfg: E2CRFConfig, pp: PolicyParams, x, t_batch, std,
-                low_bonus, probe):
-    """One step of the token level (``token_level_body``): FULL, TOPK or SKIP.
-    ``probe()`` gives the step's (T,) probe uniforms, drawn only at TOPK."""
-    mode, w_drift, mean_drift = token_policy(cfg, pp, c, x)
-    score, c = _token_mode_step(network, c, cfg, pp, x, t_batch, std, low_bonus, probe,
-                                mode, w_drift, mean_drift, c.step)
-    return score, _count_token(c, mode, cfg, x.shape[1])
-
-
 def _token_mode_step(network, c: CacheState, cfg: E2CRFConfig, pp: PolicyParams, x, t_batch,
-                     std, low_bonus, probe, mode, w_drift, mean_drift, step):
-    """The token level's step in ``mode`` with the policy's ``w_drift`` and
-    ``mean_drift``; ``step`` is the global step, a host int or a 0-d device
-    tensor.  The counters are left to :func:`_count_token`."""
+                     std, low_bonus, probe_u, mode, w_drift, mean_drift, step):
+    """One step of the token level (``token_level_body``) in ``mode``: FULL,
+    TOPK or SKIP, with the policy's ``w_drift`` and ``mean_drift`` and the
+    step's probe uniforms ``probe_u`` (T,), read at TOPK; ``step`` is the
+    global step, a 0-d int64 tensor.  The counters are left to the chain."""
     max_len = x.shape[1]
     stdc = std[..., None]
     budget = min(int(cfg.token_budget), max_len)
@@ -326,7 +303,7 @@ def _token_mode_step(network, c: CacheState, cfg: E2CRFConfig, pp: PolicyParams,
         # steps since its last recompute, energy-weighted), the K lowest
         # frequencies always in, random probes forced in below them.
         acc_err = w_drift * (age + 1.0)
-        probe_bonus = torch.where(probe() < pp.random_probe_ratio, 1e9, 0.0)
+        probe_bonus = torch.where(probe_u < pp.random_probe_ratio, 1e9, 0.0)
         idx = _topk_rows(acc_err + low_bonus + probe_bonus, budget)
         out_rows, kv = score_apply_topk(network, x, t_batch, (c.k, c.v), idx)
         eps_rows = -std.index_select(1, idx)[..., None] * out_rows
@@ -364,30 +341,6 @@ def _token_mode_step(network, c: CacheState, cfg: E2CRFConfig, pp: PolicyParams,
     return -eps_pred / stdc, c
 
 
-def _count_token(c: CacheState, mode: int, cfg: E2CRFConfig, max_len: int) -> CacheState:
-    """The host counters of a token-level step in ``mode``."""
-    if mode == TOKEN_FULL:
-        return _count_refresh(c, max_len)
-    if mode == TOKEN_TOPK:
-        budget = min(int(cfg.token_budget), max_len)
-        return c.replace(mixed_steps=c.mixed_steps + 1,
-                         recompute_count=c.recompute_count + budget,
-                         cache_hit_count=c.cache_hit_count + (max_len - budget))
-    return _count_skip(c, max_len)
-
-
-def _kv_step(network, c: CacheState, cfg: E2CRFConfig, pp: PolicyParams, x, t, t_batch, probe):
-    """One step of the KV level (``kv_level_body``): the policy's mode, the
-    cached forward in it, the bookkeeping."""
-    if cfg.policy == "macro":
-        mode, mask, n_masked = macro_policy(pp, c, x.shape[1], x.device)
-    else:
-        probe_u = probe() if cfg.resolved_random_probe_ratio > 0.0 else None
-        mode, mask, n_masked = event_policy(cfg, pp, c, x, probe_u)
-    score, kv, crf = score_apply_cached(network, x, t_batch, (c.k, c.v), mask, mode)
-    return score, update_after_forward(cfg, c, mode, n_masked, kv, crf, t)
-
-
 def _fresca(use_fresca: bool, low_scale, high_scale, cutoff_ratio: float, cutoff_strategy: str,
             num_steps: int):
     """Each step's score transform: FreSca with these settings, or none."""
@@ -398,6 +351,33 @@ def _fresca(use_fresca: bool, low_scale, high_scale, cutoff_ratio: float, cutoff
                                      timestep=t, num_steps=num_steps)
 
     return fresca
+
+
+def _eager_chain(network, scheduler, x0, cache_state, cache_cfg, num_steps, step_noise,
+                 probe_noise, generator, fresca, guard_trace=False):
+    """Run the eager loop from ``x0``; returns the chain
+    (:class:`~fdtpu_torch.sampling.resident.Chain`) and its final state."""
+    from fdtpu_torch.sampling.resident import Chain
+
+    pp = None
+    if cache_cfg is not None:
+        pp = cache_cfg.policy_params(x0.device)
+        if cache_state is None:
+            cfg = network.config
+            cache_state = init_cache_state(
+                cache_cfg, x0.shape[0], x0.shape[1], x0.shape[2], x0.device,
+                num_layers=cfg.num_layers, n_head=cfg.n_head, head_dim=cfg.head_dim,
+                d_model=cfg.d_model, kv_dtype=cfg._cdtype,
+            )
+    chain = Chain(network, scheduler, cache_cfg, pp, cache_state, x0.shape[0], num_steps, fresca,
+                  x0.device, resident=False, inject_steps=step_noise is not None,
+                  inject_probes=probe_noise is not None, guard_trace=guard_trace)
+    chain.load(x0, step_noise, probe_noise)
+    chain.begin_call(generator)
+    chain.run_eager()
+    chain.end_call(generator)
+    state, _ = chain.read()
+    return chain, state
 
 
 @torch.no_grad()
@@ -419,90 +399,29 @@ def sample_chain(
     fresca_cutoff_strategy: str = "energy",
     guard_trace: bool = False,
 ):
-    """Run the reverse diffusion from the prior sample ``x0``.
+    """Run the reverse diffusion from the prior sample ``x0``: the eager
+    loop, one device read a step at the cached levels
+    (:meth:`~fdtpu_torch.sampling.resident.Chain.run_eager`).
 
     Returns ``(x, cache_state)``; with ``guard_trace=True`` (score level)
     also per-step telemetry ``(measured, rel, eps_norm, err_acc,
     steps_since)``, each ``(num_steps,)`` and zero on skipped steps, laid out
-    as the JAX package's ``guard_trace``.  A token- or KV-level
-    ``cache_state`` passed in has its K/V store updated in place.  With
-    ``use_fresca`` each step's score goes through ``apply_fresca_to_score``
-    (the ``fresca_*`` arguments, the JAX defaults) before the update of x.
+    as the JAX package's ``guard_trace``.  ``cache_state`` is not changed: the
+    chain works on copies of its tensors.  With ``use_fresca`` each step's
+    score goes through ``apply_fresca_to_score`` (the ``fresca_*``
+    arguments, the JAX defaults) before the update of x.
     """
     if cache_cfg is not None:
         _check_cache_config(cache_cfg)
     if guard_trace and (cache_cfg is None or cache_cfg.level != "score"):
         raise NotImplementedError("guard_trace only supports level='score'")
-    network = network.compute_copy()
-    ts, step_size = scheduler.timesteps(num_steps, device=x0.device)
-    batch = x0.shape[0]
-
-    def noise(i: int, x: torch.Tensor) -> torch.Tensor:
-        if step_noise is not None:
-            return step_noise[i].to(device=x.device, dtype=x.dtype)
-        return torch.randn(x.shape, generator=generator, device=x.device, dtype=x.dtype)
-
     fresca = _fresca(use_fresca, fresca_low_scale, fresca_high_scale, fresca_cutoff_ratio,
                      fresca_cutoff_strategy, num_steps)
-
-    x = x0
-    if cache_cfg is None:
-        for i in range(num_steps):
-            t = ts[i]
-            score = fresca(network(x, t.expand(batch)), t)
-            x = scheduler.step(score, t, x, noise(i, x), step_size)
-        return x, None
-
-    pp = cache_cfg.policy_params(x0.device)
-    level = cache_cfg.level
-    max_len = x0.shape[1]
-    cache = cache_state
-    if cache is None:
-        cfg = network.config
-        cache = init_cache_state(
-            cache_cfg, batch, max_len, x0.shape[2], x0.device, num_layers=cfg.num_layers,
-            n_head=cfg.n_head, head_dim=cfg.head_dim, d_model=cfg.d_model, kv_dtype=cfg._cdtype,
-        )
-    skipped = (0.0, torch.zeros((), device=x.device), torch.zeros((), device=x.device),
-               torch.zeros((), device=x.device), 0.0)
-    # The token level's K low-frequency anchors, ahead of every other token.
-    low_bonus = torch.where(torch.arange(max_len, device=x.device) < pp.K, 2e9, 0.0)
-    traces = []
-    for i in range(num_steps):
-        t = ts[i]
-        t_batch = t.expand(batch)
-
-        def probe() -> torch.Tensor:
-            if probe_noise is not None:
-                return probe_noise[i].to(device=x.device, dtype=torch.float32)
-            return torch.rand((max_len,), generator=generator, device=x.device)
-
-        if level == "kv":
-            score, cache = _kv_step(network, cache, cache_cfg, pp, x, t, t_batch, probe)
-        else:
-            _, std = scheduler.marginal_prob(x, t_batch)
-            if level == "token":
-                score, cache = _token_step(network, cache, cache_cfg, pp, x, t_batch, std,
-                                           low_bonus, probe)
-            elif score_skip_decision(cache_cfg, pp, cache):
-                score, cache, trace = _refresh(network, cache, cache_cfg, pp, x, t, t_batch, std)
-                cache = _count_refresh(cache, max_len)
-            else:
-                score, cache = _skip(cache, cache_cfg, t, std)
-                cache = _count_skip(cache, max_len)
-                trace = skipped
-        if guard_trace:
-            traces.append(trace)
-        x = scheduler.step(fresca(score, t), t, x, noise(i, x), step_size)
-        cache = cache.replace(step=cache.step + 1)
+    chain, state = _eager_chain(network, scheduler, x0, cache_state, cache_cfg, num_steps,
+                                step_noise, probe_noise, generator, fresca, guard_trace)
     if guard_trace:
-        columns = tuple(
-            torch.stack([torch.as_tensor(tr[j], dtype=torch.float32, device=x.device)
-                         for tr in traces])
-            for j in range(5)
-        )
-        return x, cache, columns
-    return x, cache
+        return chain.x, state, tuple(chain.trace[:, j] for j in range(5))
+    return chain.x, state
 
 
 class DiffusionSampler:
@@ -513,14 +432,19 @@ class DiffusionSampler:
     at the KV level); ``use_fresca`` and the ``fresca_*`` arguments scale each
     step's score by frequency band, with the JAX package's defaults.
 
-    ``batches_per_call`` > 1 groups that many full-size batches as the JAX
-    package's resident path does, when there is more than one batch: on a
-    CUDA network each group's trajectories run as replays of segment graphs
-    captured once per sampler and shape (:mod:`fdtpu_torch.sampling.graphed`),
-    on a CPU network the same segments run eagerly; the remainder of fewer
-    than ``batches_per_call`` batches takes the per-batch path.  The values
-    are those of ``batches_per_call=1``, the eager per-step loop.  ``mesh``
-    is not ported yet (ROADMAP.md).
+    ``batches_per_call`` > 1 runs the batches as the JAX package's resident
+    path does, when there is more than one batch: each trajectory is one
+    replay of a graph captured once per sampler and shape, its decisions
+    taken on the device (:mod:`fdtpu_torch.sampling.resident`), the replays
+    back to back with nothing read in between; on a CPU network the same
+    functions run as a loop.  The JAX package runs a remainder of fewer than
+    ``batches_per_call`` batches through its per-batch program, itself a
+    whole trajectory a dispatch, because a shorter group would recompile its
+    scan; here the remainder's trajectories are replays of the same graph.
+    The values are those of ``batches_per_call=1``, the eager per-step loop
+    (a device read a step).  After a call,
+    ``last_modes`` holds each batch's mode at every step ((batches, steps),
+    on the device; None uncached).  ``mesh`` is not ported yet (ROADMAP.md).
     """
 
     def __init__(
@@ -552,13 +476,15 @@ class DiffusionSampler:
             _check_cache_config(cfg)
             self._check_level_settings(cfg)
         self.last_cache_state: Optional[CacheState] = None
+        self.last_modes: Optional[torch.Tensor] = None
+        self._last_stats: Optional[dict] = None
         self.use_fresca = use_fresca
         self.fresca_low_scale = fresca_low_scale
         self.fresca_high_scale = fresca_high_scale
         self.fresca_cutoff_ratio = fresca_cutoff_ratio
         self.fresca_cutoff_strategy = fresca_cutoff_strategy
         self.batches_per_call = max(1, int(batches_per_call))
-        # The grouped path's policy knobs, device tensors that its graphs read.
+        # The policy knobs of the resident chains, device tensors their graphs read.
         self.policy_params = cfg.policy_params(self.device) if cfg is not None else None
         self._chains: dict[tuple, Any] = {}
 
@@ -640,9 +566,9 @@ class DiffusionSampler:
 
         num_batches = max(1, num_samples // self.sample_batch_size)
         if self.batches_per_call > 1 and num_batches > 1:
-            return self._sample_grouped(num_batches, num_diffusion_steps, generator,
-                                        prior_noise, step_noise, probe_noise)
-        all_samples = []
+            return self._sample_resident(num_batches, num_diffusion_steps, generator,
+                                         prior_noise, step_noise, probe_noise)
+        all_samples, modes = [], []
         cache_state: Optional[CacheState] = None
 
         def cache_batch(state: CacheState) -> int:
@@ -664,92 +590,82 @@ class DiffusionSampler:
                 cache_state = self._init_cache(batch_size)
             elif self.use_cache and batch_idx > 0:
                 cache_state = _prep_cache_for_new_batch(cache_state)
-            x, cache_state = sample_chain(
-                self.score_model.network,
-                self.noise_scheduler,
-                x0,
-                cache_state,
-                step_noise=None if step_noise is None else step_noise[:, rows],
-                probe_noise=None if probe_noise is None else probe_noise[batch_idx],
-                generator=generator,
-                **self._chain_kwargs(num_diffusion_steps),
-            )
-            all_samples.append(x)
+            chain, cache_state = self._eager_batch(
+                x0, cache_state, num_diffusion_steps, generator,
+                None if step_noise is None else step_noise[:, rows],
+                None if probe_noise is None else probe_noise[batch_idx])
+            all_samples.append(chain.x)
+            modes.append(chain.modes)
 
-        self.last_cache_state = cache_state
-        self._check_error_budget()
+        self._finish(cache_state, modes, None)
         return torch.cat(all_samples, dim=0)
 
-    def _chain_kwargs(self, num_steps: int) -> dict:
-        return dict(
-            cache_cfg=self.cache_config, num_steps=num_steps, use_fresca=self.use_fresca,
-            fresca_low_scale=self.fresca_low_scale, fresca_high_scale=self.fresca_high_scale,
-            fresca_cutoff_ratio=self.fresca_cutoff_ratio,
-            fresca_cutoff_strategy=self.fresca_cutoff_strategy,
-        )
+    def _fresca_fn(self, num_steps: int):
+        return _fresca(self.use_fresca, self.fresca_low_scale, self.fresca_high_scale,
+                       self.fresca_cutoff_ratio, self.fresca_cutoff_strategy, num_steps)
 
-    def _graphed_chain(self, num_steps: int, inject_steps: bool, inject_probes: bool):
-        """The sampler's chain graphs for this shape, made at first use."""
-        from fdtpu_torch.sampling.graphed import GraphedChain
+    def _eager_batch(self, x0, cache_state, num_steps, generator, step_noise, probe_noise):
+        return _eager_chain(self.score_model.network, self.noise_scheduler, x0, cache_state,
+                            self.cache_config, num_steps, step_noise, probe_noise, generator,
+                            self._fresca_fn(num_steps))
 
-        key = (num_steps, inject_steps, inject_probes)
+    def _finish(self, state: Optional[CacheState], modes: list, stats: Optional[list]) -> None:
+        self.last_cache_state = state
+        self.last_modes = torch.stack(modes) if self.use_cache and modes else None
+        self._last_stats = (cache_stats(state, stats)
+                            if state is not None and stats is not None else None)
+        self._check_error_budget()
+
+    def _resident_chain(self, num_steps: int, inject_prior: bool, inject_steps: bool,
+                        inject_probes: bool):
+        """The sampler's resident chain for this shape, made at first use."""
+        from fdtpu_torch.sampling.resident import Chain
+
+        key = (num_steps, inject_prior, inject_steps, inject_probes)
         chain = self._chains.get(key)
         if chain is None:
-            fresca = _fresca(self.use_fresca, self.fresca_low_scale, self.fresca_high_scale,
-                             self.fresca_cutoff_ratio, self.fresca_cutoff_strategy, num_steps)
-            chain = GraphedChain(
+            chain = Chain(
                 self.score_model.network, self.noise_scheduler, self.cache_config,
                 self.policy_params, self._init_cache(self.sample_batch_size),
-                self.sample_batch_size, num_steps, fresca, self.device, inject_steps,
-                inject_probes,
+                self.sample_batch_size, num_steps, self._fresca_fn(num_steps), self.device,
+                resident=True, inject_steps=inject_steps, inject_probes=inject_probes,
+                draw_prior=not inject_prior,
             )
             self._chains[key] = chain
         return chain
 
-    def _sample_grouped(self, num_batches, num_steps, generator, prior_noise, step_noise,
-                        probe_noise) -> torch.Tensor:
+    def _sample_resident(self, num_batches, num_steps, generator, prior_noise, step_noise,
+                         probe_noise) -> torch.Tensor:
         """``batches_per_call`` > 1 (class docstring): the JAX package's
         grouping — the same per-batch draws, the cache carried across
         batches and marked cold (or re-initialised under
-        ``reset_between_batches``), the first batch fresh, the remainder
-        through the per-batch path."""
+        ``reset_between_batches``), the first batch fresh — as replays of the
+        resident chain, one a batch, with nothing read in between; the
+        counters and the statistics are read once, after the last."""
         batch = self.sample_batch_size
-        chain = self._graphed_chain(num_steps, step_noise is not None, probe_noise is not None)
-        gen = chain.generator
-        if generator is not None:
-            gen.set_state(generator.get_state())
-        num_grouped = num_batches - num_batches % self.batches_per_call
-        all_samples = []
-        cache_state: Optional[CacheState] = None
+        chain = self._resident_chain(num_steps, prior_noise is not None, step_noise is not None,
+                                     probe_noise is not None)
+        fresh_state = self._init_cache(batch)
+        chain.begin_call(generator)
+        all_samples, modes = [], []
         for batch_idx in range(num_batches):
             rows = slice(batch_idx * batch, (batch_idx + 1) * batch)
-            x0 = self.sample_prior(batch, gen, None if prior_noise is None else prior_noise[rows])
-            steps = None if step_noise is None else step_noise[:, rows]
-            probes = None if probe_noise is None else probe_noise[batch_idx]
-            fresh = batch_idx == 0 or (self.use_cache and self.cache_config.reset_between_batches)
-            if batch_idx < num_grouped:
-                if self.use_cache:
-                    if fresh:
-                        chain.reset(self._init_cache(batch))
-                    else:
-                        chain.mark_cold()
-                all_samples.append(chain.sample_batch(x0, steps, probes).clone())
-                continue
+            chain.load(None if prior_noise is None else self.sample_prior(batch, None,
+                                                                         prior_noise[rows]),
+                       None if step_noise is None else step_noise[:, rows],
+                       None if probe_noise is None else probe_noise[batch_idx])
             if self.use_cache:
-                if cache_state is None:
-                    cache_state = chain.state
-                cache_state = (self._init_cache(batch) if fresh
-                               else _prep_cache_for_new_batch(cache_state))
-            x, cache_state = sample_chain(
-                self.score_model.network, self.noise_scheduler, x0, cache_state,
-                step_noise=steps, probe_noise=probes, generator=gen,
-                **self._chain_kwargs(num_steps),
-            )
-            all_samples.append(x)
-        if generator is not None:
-            generator.set_state(gen.get_state())
-        self.last_cache_state = cache_state if cache_state is not None else chain.snapshot()
-        self._check_error_budget()
+                if batch_idx == 0 or self.cache_config.reset_between_batches:
+                    chain.reset(fresh_state)
+                else:
+                    chain.mark_cold()
+            chain.run_resident()
+            all_samples.append(chain.x.clone())
+            if self.use_cache:
+                modes.append(chain.modes.clone())
+        chain.end_call(generator)
+        cache_state, stats = chain.read(stats=True)
+        self._finish(cache_state, modes, stats)
         return torch.cat(all_samples, dim=0)
 
     def _check_error_budget(self) -> None:
@@ -789,4 +705,6 @@ class DiffusionSampler:
     def get_cache_stats(self) -> dict[str, Any]:
         if self.last_cache_state is None:
             return {}
+        if self._last_stats is not None:
+            return dict(self._last_stats)
         return cache_stats(self.last_cache_state)

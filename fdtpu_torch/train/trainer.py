@@ -22,9 +22,18 @@ loop runs where the caller's network lives (the card unless it is on the CPU).
 ``steps_per_call`` (default 16, as the JAX trainer's) takes that many
 same-shape steps per call of :class:`GraphedSteps`: replays of a captured
 step graph on the card, the same steps run directly on the CPU; the odd-sized
-last batch of an epoch has a graph of its own.  Not ported here
-(ROADMAP.md): the dp×tp mesh (one device only) and the device-resident epoch
-loop (``epochs_per_call``).
+last batch of an epoch has a graph of its own.
+
+``epochs_per_call`` > 1 is the JAX package's device-resident loop
+(``_fit_on_device``, :class:`ResidentEpochs`): the standardised splits on the
+device, the shuffle a device permutation drawn from the trainer's generator,
+partial batches as zero-weight rows with the exact weighted-mean gradient,
+the val loss and the running best parameters on the device, that many epochs
+per captured graph on the card; callbacks, the best checkpoint and the
+resume snapshot at call boundaries.  Its trajectory differs from the host
+loop's (the device shuffle, the draws' order) and does not depend on
+``epochs_per_call``.  Not ported here (ROADMAP.md): the dp×tp mesh (one
+device only).
 """
 
 from __future__ import annotations
@@ -47,7 +56,7 @@ from fdtpu_torch.train import checkpoint
 from fdtpu_torch.train.state import ClippedAdamW, make_optimizer
 from fdtpu_torch.utils import wandb
 from fdtpu_torch.utils.device import module_device
-from fdtpu_torch.utils.graphs import GraphRunner
+from fdtpu_torch.utils.graphs import CudaGraph, GraphRunner, launch_counts, set_counts
 
 
 def get_training_params(
@@ -79,10 +88,12 @@ def train_step(
     return loss
 
 
-def _loss_and_update(network, optimizer, scheduler, batch, generator, likelihood_weighting):
+def _loss_and_update(network, optimizer, scheduler, batch, generator, likelihood_weighting,
+                     sample_weight=None):
     """A step's device work: loss, backward, update (no host value)."""
     loss = sde_loss(network, scheduler, batch, generator=generator,
-                    likelihood_weighting=likelihood_weighting, train=True)
+                    likelihood_weighting=likelihood_weighting, train=True,
+                    sample_weight=sample_weight)
     optimizer.zero_grad()
     loss.backward()
     optimizer.update()
@@ -158,6 +169,171 @@ class GraphedSteps:
         j.add_(1)
 
 
+def draw_permutation(n: int, generator: torch.Generator) -> torch.Tensor:
+    """A uniform permutation of ``range(n)`` drawn on the generator's device
+    (the JAX loop's ``jax.random.permutation``)."""
+    return torch.randperm(n, generator=generator, device=generator.device)
+
+
+def padded_weights(n: int, steps: int, batch: int) -> np.ndarray:
+    """(steps, batch) row weights: 1 for the first ``n`` rows, 0 for the
+    padding of the last batch (``fdtpu/train/trainer.py:495``)."""
+    w = np.zeros((steps * batch,), np.float32)
+    w[:n] = 1.0
+    return w.reshape(steps, batch)
+
+
+class ResidentEpochs:
+    """Whole epochs on the device (``epochs_per_call``; the JAX package's
+    ``_fit_on_device``, ``fdtpu/train/trainer.py:466-620``).
+
+    The standardised train split ``(N, T, C)`` and the val split, padded to
+    ``(val steps, B, T, C)``, live on the device.  An epoch draws a
+    permutation of the train rows (:func:`draw_permutation`), pads it with row
+    0 to whole batches and takes a step on each batch with the rows' weights
+    (:func:`padded_weights`: the padding weighs 0, so the loss is the exact
+    mean over the real rows and so is its gradient); then the val loss, each
+    batch's weighted mean weighted by its real rows, and the running best:
+    the parameters, the val loss and the epoch of the best epoch so far, kept
+    on the device.  :meth:`run` takes ``n`` epochs and reads their losses and
+    the best once.
+
+    On the card the ``n`` epochs are one captured graph, the steps unrolled
+    (a draw inside a loop body would repeat its numbers), with the trainer's
+    generator registered: one graph per length of call and micro-step
+    position that occurs (gradient accumulation bakes whether a micro-step
+    updates), captured after one train and one val step warmed the kernels
+    up on copies that are then put back.  On the CPU the same epochs run
+    directly."""
+
+    def __init__(self, network, optimizer: ClippedAdamW, scheduler: SDE,
+                 generator: torch.Generator, likelihood_weighting: bool, train_x: np.ndarray,
+                 val_x: np.ndarray, batch: int) -> None:
+        self.device = dev = optimizer.params[0].device
+        self.network, self.optimizer, self.scheduler = network, optimizer, scheduler
+        self.generator, self.likelihood_weighting = generator, likelihood_weighting
+        self.n_train, self.batch = len(train_x), batch
+        self.steps = -(-self.n_train // batch)
+        val_steps = -(-len(val_x) // batch)
+        self.x = torch.from_numpy(np.ascontiguousarray(train_x, np.float32)).to(dev)
+        xv = np.zeros((val_steps * batch, *val_x.shape[1:]), np.float32)
+        xv[:len(val_x)] = val_x
+        self.xv = torch.from_numpy(xv.reshape(val_steps, batch, *val_x.shape[1:])).to(dev)
+        self.w = torch.from_numpy(padded_weights(self.n_train, self.steps, batch)).to(dev)
+        wv = padded_weights(len(val_x), val_steps, batch)
+        self.wv = torch.from_numpy(wv).to(dev)
+        frac = wv.sum(axis=1)
+        self.v_frac = torch.from_numpy(frac / frac.sum()).to(dev)
+        self.pad = torch.zeros((self.steps * batch - self.n_train,), dtype=torch.int64, device=dev)
+        self.best = [p.detach().clone() for p in optimizer.params]
+        self.best_val = torch.full((), float("inf"), device=dev)
+        self.best_epoch = torch.full((), -1, dtype=torch.int64, device=dev)
+        self.first_epoch = torch.zeros((), dtype=torch.int64, device=dev)
+        self.losses: dict[int, tuple[torch.Tensor, torch.Tensor]] = {}
+        self.graphs: dict[tuple[int, int], tuple[CudaGraph, tuple[int, ...]]] = {}
+        self.pool = torch.cuda.graph_pool_handle() if dev.type == "cuda" else None
+
+    def start(self, best_val_loss: float) -> None:
+        """The running best from the current parameters and ``best_val_loss``
+        (a resumed run's), as the JAX carry starts."""
+        self.best_val.fill_(best_val_loss)
+        self.best_epoch.fill_(-1)
+        for b, p in zip(self.best, self.optimizer.params):
+            b.copy_(p.detach())
+
+    def run(self, first_epoch: int, n: int) -> tuple[np.ndarray, np.ndarray, float, int]:
+        """Epochs ``first_epoch .. first_epoch + n - 1``; returns their step
+        losses (n, steps), val losses (n,), the best val loss and its epoch
+        (-1: none better than the start), from one device read."""
+        if n not in self.losses:
+            self.losses[n] = (torch.zeros((n, self.steps), device=self.device),
+                              torch.zeros((n,), device=self.device))
+        self.first_epoch.fill_(first_epoch)
+        if self.pool is None:
+            self._epochs(n)
+        else:
+            self._replay(n)
+        steps, vals = self.losses[n]
+        values = torch.cat([steps.double().flatten(), vals.double(), self.best_val.double()[None],
+                            self.best_epoch.double()[None]]).tolist()
+        k = n * self.steps
+        return (np.asarray(values[:k]).reshape(n, self.steps), np.asarray(values[k:k + n]),
+                values[-2], int(values[-1]))
+
+    def _replay(self, n: int) -> None:
+        opt = self.optimizer
+        key = (n, opt.mini_step)
+        if key not in self.graphs:
+            self._warm_up()
+            graph = CudaGraph(self.pool, (self.generator,))
+            before, host = launch_counts(), (opt.count, opt.mini_step)
+            try:
+                graph.capture(lambda: self._epochs(n))
+                launched = tuple(a - b for a, b in zip(launch_counts(), before))
+            finally:
+                set_counts(before)
+                opt.count, opt.mini_step = host
+            self.graphs[key] = (graph, launched)
+        graph, launched = self.graphs[key]
+        graph.replay()
+        set_counts(a + b for a, b in zip(launch_counts(), launched))
+        for _ in range(n * self.steps):
+            opt.advance()
+
+    def _warm_up(self) -> None:
+        """One train step, one val loss and a permutation, eagerly on a side
+        stream (kernels built, library handles made), then everything they
+        changed put back."""
+        opt = self.optimizer
+        params = [p.detach().clone() for p in opt.params]
+        opt_state = copy.deepcopy(opt.state_dict())
+        gen_state, counts = self.generator.get_state(), launch_counts()
+
+        def step():
+            draw_permutation(self.n_train, self.generator)
+            _loss_and_update(self.network, opt, self.scheduler, self.x[:self.batch],
+                             self.generator, self.likelihood_weighting, self.w[0])
+            with torch.no_grad():
+                sde_loss(self.network, self.scheduler, self.xv[0], generator=self.generator,
+                         likelihood_weighting=self.likelihood_weighting, train=False,
+                         sample_weight=self.wv[0])
+
+        CudaGraph.warm_up(step)
+        with torch.no_grad():
+            for p, saved in zip(opt.params, params):
+                p.copy_(saved)
+        opt.load_state_dict(opt_state)
+        self.generator.set_state(gen_state)
+        set_counts(counts)
+
+    def _epochs(self, n: int) -> None:
+        steps_out, vals_out = self.losses[n]
+        opt = self.optimizer
+        for e in range(n):
+            perm = draw_permutation(self.n_train, self.generator)
+            idx = torch.cat([perm, self.pad]).reshape(self.steps, self.batch)
+            for s in range(self.steps):
+                loss = _loss_and_update(self.network, opt, self.scheduler,
+                                        self.x.index_select(0, idx[s]), self.generator,
+                                        self.likelihood_weighting, self.w[s])
+                steps_out[e, s].copy_(loss)
+                opt.advance()
+            with torch.no_grad():
+                val = torch.stack([
+                    sde_loss(self.network, self.scheduler, self.xv[i], generator=self.generator,
+                             likelihood_weighting=self.likelihood_weighting, train=False,
+                             sample_weight=self.wv[i])
+                    for i in range(self.xv.shape[0])])
+                val = torch.sum(val * self.v_frac)
+                vals_out[e].copy_(val)
+                improved = val < self.best_val
+                for b, p in zip(self.best, opt.params):
+                    b.copy_(torch.where(improved, p, b))
+                self.best_val.copy_(torch.minimum(self.best_val, val))
+                self.best_epoch.copy_(torch.where(improved, self.first_epoch + e,
+                                                  self.best_epoch))
+
+
 class Trainer:
     def __init__(
         self,
@@ -183,14 +359,11 @@ class Trainer:
         ``steps_per_call``: consecutive same-shape optimizer steps taken per
         call of :class:`GraphedSteps` (replays of a captured step graph on
         the card); 1 is the eager per-step loop.  The training trajectory is
-        the same for every value.  ``use_mesh`` on one device changes
-        nothing, as with one JAX device; a mesh over several devices and
-        ``epochs_per_call > 1`` are not ported yet (ROADMAP.md)."""
-        if epochs_per_call > 1:
-            raise NotImplementedError(
-                "epochs_per_call > 1 (the device-resident epoch loop) is not ported yet "
-                "(ROADMAP.md: epochs_per_call)"
-            )
+        the same for every value.  ``epochs_per_call`` > 1: that many epochs
+        per call of the device-resident loop (:class:`ResidentEpochs`; the
+        module docstring), ``steps_per_call`` then unused.  ``use_mesh`` on
+        one device changes nothing, as with one JAX device; a mesh over
+        several devices is not ported yet (ROADMAP.md)."""
         if mesh is not None:
             raise NotImplementedError("mesh is not ported yet (ROADMAP.md: distribution)")
         self.max_epochs = max_epochs
@@ -203,6 +376,7 @@ class Trainer:
         self.resume = resume
         self.save_resume_state = save_resume_state
         self.steps_per_call = max(1, int(steps_per_call))
+        self.epochs_per_call = max(1, int(epochs_per_call))
         self.run_id = run_id if run_id is not None else time.strftime("%Y%m%d_%H%M%S")
         self.run_dir = Path(run_dir) / self.run_id
         self.run_dir.mkdir(parents=True, exist_ok=True)
@@ -249,6 +423,21 @@ class Trainer:
                     self.best_checkpoint = checkpoint.get_best_checkpoint(ckpts)
                     best_state = checkpoint.load_network_state(self.best_checkpoint)
                 logging.info("resuming from epoch %d (global step %d)", start_epoch, global_step)
+        if self.epochs_per_call > 1:
+            best_state = self._fit_resident(model, datamodule, network, optimizer, generator,
+                                            start_epoch, global_step, best_state)
+        else:
+            best_state = self._fit_host(model, datamodule, network, optimizer, generator,
+                                        start_epoch, global_step, best_state)
+        if best_state is not None:
+            network.load_state_dict(best_state)
+        model.network = network.eval().requires_grad_(False)
+        return model
+
+    def _fit_host(self, model, datamodule, network, optimizer, generator, start_epoch,
+                  global_step, best_state):
+        """The host loop: one host-shuffled epoch after another."""
+        device = module_device(network)
         scheduler = model.scheduler
         spc = self.steps_per_call
         graphed = (GraphedSteps(network, optimizer, scheduler, generator,
@@ -291,32 +480,78 @@ class Trainer:
                 if val_losses else float("nan")
             )
             dt = time.perf_counter() - t0
-            self._log({"step": global_step, "epoch": epoch, "train/loss_epoch": train_loss,
-                       "val/loss": val_loss, "epoch_time_s": round(dt, 2),
-                       "lr": optimizer.schedule(global_step // per_update)})
-            logging.info("epoch %d: train/loss %.5f val/loss %.5f (%.1fs)",
-                         epoch, train_loss, val_loss, dt)
+            self._log_epoch(epoch, global_step, train_loss, val_loss, dt, optimizer)
             if val_loss < self.best_val_loss:
                 self.best_val_loss = val_loss
                 best_state = {k: v.detach().clone() for k, v in network.state_dict().items()}
-                self.best_checkpoint = checkpoint.save_checkpoint(
-                    self.run_dir, dataclasses.replace(model, network=network), epoch, val_loss)
-                wandb.maybe_log_model(self.best_checkpoint)
-            if self.save_resume_state:
-                checkpoint.save_train_state(
-                    self.run_dir,
-                    {"network": network.state_dict(), "optimizer": optimizer.state_dict(),
-                     "generator": generator.get_state()},
-                    epoch=epoch, global_step=global_step, best_val_loss=self.best_val_loss)
-            for callback in self.callbacks:
-                callback.on_train_epoch_end(trainer=self, network=network, epoch=epoch)
+                self._save_best(model, network, epoch, val_loss)
+            self._end_call(network, optimizer, generator, epoch, global_step)
+        return best_state
 
-        if best_state is not None:
-            network.load_state_dict(best_state)
-        model.network = network.eval().requires_grad_(False)
-        return model
+    def _fit_resident(self, model, datamodule, network, optimizer, generator, start_epoch,
+                      global_step, best_state):
+        """The device-resident loop (``epochs_per_call``; module docstring):
+        the logs, the best checkpoint, the resume snapshot and the callbacks
+        at each call's end, from one device read."""
+        loop = ResidentEpochs(
+            network, optimizer, model.scheduler, generator, model.likelihood_weighting,
+            datamodule.train_dataloader().dataset.standardized(),
+            datamodule.val_dataloader().dataset.standardized(), int(datamodule.batch_size))
+        loop.start(self.best_val_loss)
+        per_update = self.accumulate_grad_batches
+        epoch = start_epoch
+        while epoch < self.max_epochs:
+            n = min(self.epochs_per_call, self.max_epochs - epoch)
+            t0 = time.perf_counter()
+            step_losses, val_losses, best_val, best_epoch = loop.run(epoch, n)
+            dt = time.perf_counter() - t0
+            for e in range(n):
+                for loss in step_losses[e]:
+                    global_step += 1
+                    if global_step % self.log_every_n_steps == 0:
+                        self._log({"step": global_step, "epoch": epoch + e,
+                                   "train/loss": float(loss),
+                                   "lr": optimizer.schedule(global_step // per_update)})
+                self._log_epoch(epoch + e, global_step, float(step_losses[e].mean()),
+                                float(val_losses[e]), dt / n, optimizer)
+            if best_val < self.best_val_loss:
+                self.best_val_loss = best_val
+                best_state = {k: v.detach().clone() for k, v in network.state_dict().items()}
+                # The optimizer's parameters are the network's trainable ones, in order.
+                trainable = [n for n, p in network.named_parameters() if p.requires_grad]
+                best_state.update({n: b.clone() for n, b in zip(trainable, loop.best)})
+                best_network = copy.deepcopy(network)
+                best_network.load_state_dict(best_state)
+                self._save_best(model, best_network, best_epoch, best_val)
+            epoch += n
+            self._end_call(network, optimizer, generator, epoch - 1, global_step)
+        return best_state
+
+    def _log_epoch(self, epoch, global_step, train_loss, val_loss, dt, optimizer) -> None:
+        self._log({"step": global_step, "epoch": epoch, "train/loss_epoch": train_loss,
+                   "val/loss": val_loss, "epoch_time_s": round(dt, 2),
+                   "lr": optimizer.schedule(global_step // self.accumulate_grad_batches)})
+        logging.info("epoch %d: train/loss %.5f val/loss %.5f (%.1fs)",
+                     epoch, train_loss, val_loss, dt)
+
+    def _save_best(self, model, network, epoch: int, val_loss: float) -> None:
+        self.best_checkpoint = checkpoint.save_checkpoint(
+            self.run_dir, dataclasses.replace(model, network=network), epoch, val_loss)
+        wandb.maybe_log_model(self.best_checkpoint)
+
+    def _end_call(self, network, optimizer, generator, epoch: int, global_step: int) -> None:
+        """The resume snapshot and the callbacks, after ``epoch``."""
+        if self.save_resume_state:
+            checkpoint.save_train_state(
+                self.run_dir,
+                {"network": network.state_dict(), "optimizer": optimizer.state_dict(),
+                 "generator": generator.get_state()},
+                epoch=epoch, global_step=global_step, best_val_loss=self.best_val_loss)
+        for callback in self.callbacks:
+            callback.on_train_epoch_end(trainer=self, network=network, epoch=epoch)
 
     def _log(self, record: dict[str, Any]) -> None:
         with open(self.metrics_path, "a") as f:
             f.write(json.dumps(record) + "\n")
         wandb.maybe_log_wandb(record)
+

@@ -1,11 +1,12 @@
 """Segments of a host loop as captured CUDA graphs, and the launch counts
-their replays make.
+their replays make (the trainer's ``steps_per_call``,
+:class:`~fdtpu_torch.train.trainer.GraphedSteps`).
 
 The JAX package runs many steps in one dispatch (``lax.scan``); the port's
 counterpart is the CUDA graph.  A loop that branches on the host is cut into
 segments, one per branch the host can take, each keyed by the host values
-its Python code reads (a mode, a cold flag).  :meth:`GraphRunner.run` runs a
-segment:
+its Python code reads (a mode, whether a micro-step updates).
+:meth:`GraphRunner.run` runs a segment:
 
 * the first time a key is met, the segment runs eagerly on a side stream —
   a real step of the loop, which also builds every kernel library it needs
@@ -26,7 +27,9 @@ host call: each graph records how many launches of each kernel its capture
 made (the counters are put back as they were after the capture, which
 launched nothing) and adds them at every replay.
 
-A runner made for a CPU device runs every segment directly.
+A runner made for a CPU device runs every segment directly.  The sampler's
+chains, whose branches are decided on the device, are one graph each
+(:mod:`fdtpu_torch.utils.conditional`).
 """
 
 from __future__ import annotations
@@ -47,7 +50,7 @@ def launch_counts() -> tuple[int, ...]:
     return tuple(getattr(module, name) for module, name in COUNTERS)
 
 
-def _set_counts(counts: Iterable[int]) -> None:
+def set_counts(counts: Iterable[int]) -> None:
     for (module, name), n in zip(COUNTERS, counts):
         setattr(module, name, n)
 
@@ -117,7 +120,7 @@ class GraphRunner:
         graph, launched = entry
         graph.replay()
         self.replays += 1
-        _set_counts(a + b for a, b in zip(launch_counts(), launched))
+        set_counts(a + b for a, b in zip(launch_counts(), launched))
 
     def _capture(self, fn: Callable[[], None]) -> tuple[object, tuple[int, ...]]:
         graph = self.graph_type(self.pool, self.generators)
@@ -126,7 +129,7 @@ class GraphRunner:
             graph.capture(fn)
             launched = tuple(a - b for a, b in zip(launch_counts(), before))
         finally:
-            _set_counts(before)
+            set_counts(before)
         return graph, launched
 
 

@@ -19,6 +19,8 @@ moves its output by ~2^-8 w |v| (atol 8e-3, four times the largest such
 reading on the H100, as in chip_smoke.py).
 """
 
+import json
+
 import pytest
 import torch
 
@@ -408,7 +410,7 @@ def test_freqca_skip_and_fresca_read_nothing_back_from_the_card(cuda):
     """A FreqCa skip step's prediction and a FreSca call queue work on the
     card without one host synchronization (the skip decision, made before,
     is the step's one read)."""
-    from fdtpu_torch.cache import E2CRFConfig, init_cache_state
+    from fdtpu_torch.cache import E2CRFConfig, e2crf, init_cache_state
     from fdtpu_torch.ops.fresca import apply_fresca_to_score
     from fdtpu_torch.sampling import sampler as psampler
 
@@ -435,7 +437,7 @@ def test_freqca_skip_and_fresca_read_nothing_back_from_the_card(cuda):
                                        num_steps=1000)
     finally:
         torch.cuda.set_sync_debug_mode("default")
-    assert psampler._count_skip(new, t_len).cached_steps == state.cached_steps + 1
+    assert e2crf.count_mode(new, "score", 0, t_len).cached_steps == state.cached_steps + 1
     assert bool(torch.isfinite(skipped).all()) and bool(torch.isfinite(scaled).all())
 
 
@@ -455,11 +457,12 @@ GRAPH_CHAINS = {
 }
 
 
-def _graph_model(attention_impl="blockdiag", dropout=0.0, backbone="transformer", device=None):
+def _graph_model(attention_impl="blockdiag", dropout=0.0, backbone="transformer", device=None,
+                 channels=2):
     from fdtpu_torch.diffusion import VPScheduler
     from fdtpu_torch.models import ScoreModel, ScoreModelConfig, init_score_model
 
-    cfg = ScoreModelConfig(n_channels=2, max_len=33, d_model=24, num_layers=2, n_head=4,
+    cfg = ScoreModelConfig(n_channels=channels, max_len=33, d_model=24, num_layers=2, n_head=4,
                            dim_feedforward=48, attention_impl=attention_impl, dropout=dropout,
                            backbone=backbone, d_mlp=40)
     net = init_score_model(cfg, torch.Generator().manual_seed(0), device)
@@ -468,68 +471,111 @@ def _graph_model(attention_impl="blockdiag", dropout=0.0, backbone="transformer"
     return ScoreModel(config=cfg, network=net, scheduler=sched)
 
 
-def _modes(level):
-    """Each step's mode, from the host-counter helpers both chains call."""
-    from fdtpu_torch.cache import e2crf
-    from fdtpu_torch.sampling import graphed
-    from fdtpu_torch.sampling import sampler as psampler
-
-    names = {"score": ("_count_refresh", "_count_skip"), "token": ("_count_token",),
-             "kv": ("count_kv_step",)}.get(level, ())
-    modules = (e2crf, graphed) if level == "kv" else (psampler, graphed)
-    modes = []
-    mp = pytest.MonkeyPatch()
-    for module in modules:
-        for name in names:
-            orig = getattr(module, name)
-
-            def wrapped(*a, _orig=orig, _name=name, **k):
-                modes.append(_name if level == "score" else a[1])
-                return _orig(*a, **k)
-
-            mp.setattr(module, name, wrapped)
-    return modes, mp.undo
+def _draws(num_batches, n, t_len=33, channels=2, batch=4, seed=7):
+    """Prior, step and probe draws for ``num_batches`` batches of ``n`` steps."""
+    g = torch.Generator().manual_seed(seed)
+    return dict(prior_noise=torch.randn((num_batches * batch, t_len, channels), generator=g),
+                step_noise=torch.randn((n, num_batches * batch, t_len, channels), generator=g),
+                probe_noise=torch.rand((num_batches, n, t_len), generator=g))
 
 
-@pytest.mark.parametrize("name", list(GRAPH_CHAINS))
-def test_graphed_chain_equals_the_eager_chain(cuda, name):
-    """``batches_per_call=2`` (replays of captured graphs) against 1 (the
-    eager loop) at 50 steps, 3 batches (two grouped, one through the
-    per-batch path), twice over the same sampler: the same mode at every
-    step, equal cache statistics and launch counts (B1 per layer and full
-    forward, B4 per layer and cached step, through replays), samples within
-    rtol 2e-5 / atol 5e-5 (bitwise expected: the same kernels)."""
-    kw, options = GRAPH_CHAINS[name]
-    model = _graph_model()
+def _resident_against_eager(model, kw, options, n, batch, injected):
+    """Three batches at ``batches_per_call`` 1 (the eager loop) and 2 (two
+    trajectories as replays of the resident graph and the remainder a third
+    replay), twice over the same samplers."""
     layers = model.config.num_layers
     level = kw["level"] if kw else None
-    samplers = {k: DiffusionSampler(model, 4, use_cache=kw is not None, cache_kwargs=kw,
+    samplers = {k: DiffusionSampler(model, batch, use_cache=kw is not None, cache_kwargs=kw,
                                     batches_per_call=k, **options) for k in (1, 2)}
+    t_len, channels = model.config.max_len, model.config.n_channels
     for _ in range(2):
         runs = {}
         for k, sampler in samplers.items():
-            modes, undo = _modes(level)
             bda.launches = mha.launches = 0
-            try:
-                x = sampler.sample(12, 50, generator=torch.Generator("cuda").manual_seed(5))
-                torch.cuda.synchronize()
-            finally:
-                undo()
-            runs[k] = (x, modes, sampler.get_cache_stats(), (bda.launches, mha.launches))
+            draws = (_draws(3, n, t_len, channels, batch) if injected
+                     else dict(generator=torch.Generator("cuda").manual_seed(5)))
+            x = sampler.sample(3 * batch, n, **draws)
+            torch.cuda.synchronize()
+            runs[k] = (x, sampler.last_modes, sampler.get_cache_stats(),
+                       (bda.launches, mha.launches))
         (x1, m1, s1, c1), (x2, m2, s2, c2) = runs[1], runs[2]
-        first = next((i for i, (a, b) in enumerate(zip(m1, m2)) if a != b), None)
-        assert len(m1) == len(m2) and first is None, f"modes differ first at step {first}"
+        if kw is not None:
+            first = (m1 != m2).nonzero()
+            assert m1.shape == m2.shape == (3, n) and not len(first), \
+                f"modes differ first at (batch, step) {first[:1].tolist()}"
         assert s1 == s2 and c1 == c2
-        full = s1["full_steps"] if kw else 3 * 50
+        full = s1["full_steps"] if kw else 3 * n
         cached = (s1.get("mixed_steps", 0) + s1.get("cached_steps", 0) if level == "kv"
                   else s1.get("mixed_steps", 0) if level == "token" else 0)
         assert c2 == (layers * full, layers * cached)
-        torch.testing.assert_close(x2, x1, rtol=2e-5, atol=5e-5)
+        assert torch.equal(x2, x1), f"samples differ by {float((x2 - x1).abs().max()):.3g}"
     (chain,) = samplers[2]._chains.values()
-    assert chain.runner.replays > 0
-    assert any(launched[0] for _, launched in chain.runner.graphs.values())
+    assert chain.loop is not None
+    assert any(seg.launched[0] for seg in chain.loop.branches)
     if level in ("token", "kv"):
-        assert any(launched[3] for _, launched in chain.runner.graphs.values())
+        assert any(seg.launched[3] for seg in chain.loop.branches)
+    return samplers[2]
+
+
+@pytest.mark.parametrize("injected", [True, False], ids=["injected", "generator"])
+@pytest.mark.parametrize("name", list(GRAPH_CHAINS))
+def test_graphed_chain_equals_the_eager_chain(cuda, name, injected):
+    """The resident chain (``batches_per_call=2``: a trajectory a replay,
+    its decisions in conditional nodes) against the eager loop at 50 steps,
+    with injected noise and with a generator: the same mode at every step,
+    equal cache statistics and launch counts (B1 per layer and full forward,
+    B4 per layer and cached step, through replays), samples bitwise."""
+    kw, options = GRAPH_CHAINS[name]
+    _resident_against_eager(_graph_model(), kw, options, 50, 4, injected)
+
+
+FLAGSHIP_CHAINS = {
+    "uncached": (None, {}),
+    "score": ({"level": "score", "R": 100, "tau_0": 1.35, "eps_order": 1}, {}),
+    "token": ({"level": "token", "token_budget": 24, "tau_0": 0.5, "R": 100}, {}),
+    "kv-event": ({"level": "kv", "policy": "event", "K": 0, "R": 100, "tau_0": 10.0,
+                  "tau_warn": 1e9}, {}),
+    "kv-macro": ({"level": "kv", "policy": "macro", "K": 5, "R": 10}, {}),
+    "score-freqca": ({"level": "score", "R": 100, "tau_0": 1.35, "eps_predictor": "freqca"},
+                     {}),
+    "score-fresca": ({"level": "score", "R": 100, "tau_0": 1.35}, {"use_fresca": True}),
+    "kv-event-freqca": ({"level": "kv", "policy": "event", "K": 0, "R": 100, "tau_0": 10.0,
+                         "tau_warn": 1e9, "use_freqca": True}, {}),
+}
+
+
+@pytest.mark.parametrize("injected", [True, False], ids=["injected", "generator"])
+@pytest.mark.parametrize("name", list(FLAGSHIP_CHAINS))
+def test_resident_trajectory_at_the_flagship_equals_the_eager_loop(cuda, name, injected):
+    """The flagship (d_model 72, 10 layers, 12 heads, 187 tokens; random
+    weights) at every level and option, 3 batches of 8 at 40 steps: as
+    above, modes, statistics, B1/B4 counts equal and samples bitwise."""
+    from fdtpu_torch.diffusion import VPScheduler
+    from fdtpu_torch.models import ScoreModel, ScoreModelConfig, init_score_model
+
+    cfg = ScoreModelConfig(n_channels=1, max_len=187, attention_impl="blockdiag")
+    net = init_score_model(cfg, torch.Generator().manual_seed(0), "cuda")
+    model = ScoreModel(config=cfg, network=net, scheduler=VPScheduler(
+        fourier_noise_scaling=True).with_noise_scaling(187, "cuda"))
+    kw, options = FLAGSHIP_CHAINS[name]
+    _resident_against_eager(model, kw, options, 40, 8, injected)
+
+
+def test_no_two_steps_see_the_same_noise(cuda):
+    """The prologue draws each step's noise and probe uniforms apart: no two
+    steps of a trajectory, nor two trajectories, share them."""
+    kw, options = GRAPH_CHAINS["token"]
+    sampler = DiffusionSampler(_graph_model(), 4, use_cache=True, cache_kwargs=kw,
+                               batches_per_call=2, **options)
+    sampler.sample(8, 30, generator=torch.Generator("cuda").manual_seed(1))
+    (chain,) = sampler._chains.values()
+    first = (chain.noise.clone(), chain.probes.clone())
+    chain.begin_call(torch.Generator("cuda").manual_seed(2))
+    chain.run_resident()
+    for buf, before in zip((chain.noise, chain.probes), first):
+        rows = buf.reshape(buf.shape[0], -1)
+        assert len({tuple(r.tolist()) for r in rows}) == rows.shape[0]
+        assert not bool((buf == before).all(dim=tuple(range(1, buf.ndim))).any())
 
 
 def test_graphed_train_steps_equal_eager_steps_with_dropout(cuda):
@@ -619,32 +665,34 @@ def test_mlp_and_lstm_on_the_card(cuda, backbone):
         sampler = DiffusionSampler(model, 4, batches_per_call=k)
         samples[k] = sampler.sample(12, 20, generator=torch.Generator("cuda").manual_seed(5))
     (chain,) = sampler._chains.values()
-    assert chain.runner.replays > 0
+    assert chain.loop is not None
     torch.testing.assert_close(samples[2], samples[1], rtol=2e-5, atol=5e-5)
 
 
 def test_graph_replays_read_nothing_back_from_the_card(cuda, monkeypatch):
-    """Every replay of a sampler's and a trainer's segment graphs runs
-    under ``set_sync_debug_mode("error")``: no graph reads the host (the
-    policies' one read a step happens between replays)."""
+    """Every replay of a sampler's resident graphs and of a trainer's step
+    graphs runs under ``set_sync_debug_mode("error")``: no graph reads the
+    host."""
     import numpy as np
 
     from fdtpu_torch.train import make_optimizer
     from fdtpu_torch.train.trainer import GraphedSteps
-    from fdtpu_torch.utils import graphs
+    from fdtpu_torch.utils import conditional, graphs
 
     replays = []
-    real_replay = graphs.CudaGraph.replay
 
-    def strict_replay(self):
-        torch.cuda.set_sync_debug_mode("error")
-        try:
-            real_replay(self)
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
-        replays.append(1)
+    def strict(real):
+        def replay(self):
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                real(self)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            replays.append(1)
+        return replay
 
-    monkeypatch.setattr(graphs.CudaGraph, "replay", strict_replay)
+    monkeypatch.setattr(graphs.CudaGraph, "replay", strict(graphs.CudaGraph.replay))
+    monkeypatch.setattr(conditional.LoopGraph, "replay", strict(conditional.LoopGraph.replay))
     model = _graph_model()
     for name in ("score-freqca-fresca", "token", "kv-event-freqca"):
         kw, options = GRAPH_CHAINS[name]
@@ -656,17 +704,104 @@ def test_graph_replays_read_nothing_back_from_the_card(cuda, monkeypatch):
                          torch.Generator("cuda").manual_seed(2), False, 4)
     steps.run([np.ones((8, 33, 2), np.float32)] * 4)
     torch.cuda.synchronize()
-    assert len(replays) > 100
+    # Two trajectories a sampler, each one replay; three step replays.
+    assert len(replays) == 3 * 2 + 3
 
 
 def test_a_failed_capture_raises_instead_of_running_eager(cuda, monkeypatch):
-    from fdtpu_torch.utils import graphs
+    """A trajectory graph whose conditional nodes the runtime refuses, or
+    whose capture fails, raises: no eager retry."""
+    from fdtpu_torch.utils import conditional
 
-    def refuse(self, fn):
+    real = conditional._library()
+
+    class Refusing:
+        def __getattr__(self, name):
+            return getattr(real, name)
+
+        @staticmethod
+        def fdtpu_cond_begin_while(*args):
+            return 1  # cudaErrorInvalidValue
+
+    def sampler():
+        return DiffusionSampler(_graph_model(), 4, use_cache=True,
+                                cache_kwargs=GRAPH_CHAINS["score"][0], batches_per_call=2)
+
+    with monkeypatch.context() as mp:
+        mp.setattr(conditional, "_library", lambda: Refusing())
+        with pytest.raises(RuntimeError, match="the WHILE node failed"):
+            sampler().sample(8, 10, generator=torch.Generator("cuda").manual_seed(1))
+
+    def refuse(self, *args):
         raise RuntimeError("capture refused")
 
-    monkeypatch.setattr(graphs.CudaGraph, "capture", refuse)
-    sampler = DiffusionSampler(_graph_model(), 4, use_cache=True,
-                               cache_kwargs=GRAPH_CHAINS["score"][0], batches_per_call=2)
+    monkeypatch.setattr(conditional.LoopGraph, "_append_loop", refuse)
     with pytest.raises(RuntimeError, match="capture refused"):
-        sampler.sample(8, 10, generator=torch.Generator("cuda").manual_seed(1))
+        sampler().sample(8, 10, generator=torch.Generator("cuda").manual_seed(1))
+
+
+# ------------------------------------------------ the resident epoch loop
+def _resident_fit(tmp_path, run_id, epochs, per_call, horizon=None, **kw):
+    from fdtpu_torch.data import SyntheticDatamodule
+    from fdtpu_torch.train import Trainer, get_training_params
+
+    dm = SyntheticDatamodule(tmp_path / "data", max_len=33, num_samples=90, batch_size=16,
+                             fourier_transform=True, standardize=True, random_seed=2)
+    dm.prepare_data()
+    dm.setup()
+    model = _graph_model(dropout=0.1, channels=1)
+    model.num_training_steps = get_training_params(dm, horizon or epochs)["num_training_steps"]
+    trainer = Trainer(max_epochs=epochs, run_dir=tmp_path / "runs", run_id=run_id, seed=3,
+                      log_every_n_steps=1, epochs_per_call=per_call, **kw)
+    bda.launches = bda.launches_bwd = 0
+    model = trainer.fit(model, dm)
+    torch.cuda.synchronize()
+    records = [json.loads(r) for r in trainer.metrics_path.read_text().splitlines()]
+    for r in records:
+        r.pop("epoch_time_s", None)
+    batches = (len(dm.train_dataloader()), len(dm.val_dataloader()))
+    return model, trainer, records, (bda.launches, bda.launches_bwd, *batches)
+
+
+def test_resident_epochs_are_one_graph_a_call_and_do_not_depend_on_epochs_per_call(
+        cuda, tmp_path):
+    """Four epochs (90 train rows in batches of 16: a partial batch; dropout
+    on) at ``epochs_per_call`` 2 and 3: captured graphs (one for two epochs;
+    one for three and one for the one-epoch tail), B1 and B2 counted
+    through their replays, and the same per-step and per-epoch losses,
+    rates, best val loss and parameters, bitwise."""
+    from fdtpu_torch.train import trainer as trainer_mod
+
+    made = []
+    real_init = trainer_mod.ResidentEpochs.__init__
+
+    def init(self, *a, **k):
+        real_init(self, *a, **k)
+        made.append(self)
+
+    trainer_mod.ResidentEpochs.__init__ = init
+    try:
+        runs = {k: _resident_fit(tmp_path, f"k{k}", 4, k) for k in (2, 3)}
+    finally:
+        trainer_mod.ResidentEpochs.__init__ = real_init
+    (m2, t2, r2, c2), (m3, t3, r3, c3) = runs[2], runs[3]
+    assert sorted(made[0].graphs) == [(2, 0)] and sorted(made[1].graphs) == [(1, 0), (3, 0)]
+    assert r2 == r3 and sum("val/loss" in r for r in r2) == 4
+    assert t2.best_val_loss == t3.best_val_loss
+    steps, vals = 4 * c2[2], 4 * c2[3]
+    assert c2 == c3 == (2 * (steps + vals), 2 * steps, 6, 6)  # 2 layers
+    for a, b in zip(m2.network.state_dict().values(), m3.network.state_dict().values()):
+        assert torch.equal(a, b)
+
+
+def test_resident_epochs_resume_on_the_card(cuda, tmp_path):
+    """Two epochs and ``resume=True`` up to four against four straight, at
+    ``epochs_per_call=2``: the resumed epochs' records, the best val loss and
+    the parameters bitwise."""
+    m_full, t_full, r_full, _ = _resident_fit(tmp_path, "full", 4, 2)
+    _resident_fit(tmp_path, "part", 2, 2, horizon=4)
+    m_part, t_part, r_part, _ = _resident_fit(tmp_path, "part", 4, 2, horizon=4, resume=True)
+    assert r_part == r_full
+    assert t_part.best_val_loss == t_full.best_val_loss
+    for a, b in zip(m_full.network.state_dict().values(), m_part.network.state_dict().values()):
+        assert torch.equal(a, b)

@@ -1,9 +1,10 @@
 """Grouped sampling (``DiffusionSampler(batches_per_call > 1)``) and the
-graph runner under it, on the CPU.
+graph runner of the trainer's step graphs, on the CPU.
 
-On a CPU network the grouped path runs the segments of the graphed chain
-(static buffers, device clock, write-back, host counters) directly, so these
-tests hold that code against the JAX package's resident path
+On a CPU network the grouped path runs the resident chain's functions
+(``fdtpu_torch/sampling/resident.py``: static buffers, device counters and
+decisions, write-back, the prologue's draws) as a loop, so these tests hold
+that code against the JAX package's resident path
 (``_sample_batches_resident``) with the JAX draws handed to the port: per
 batch ``key, k_prior, k_chain = split(key, 3)``, per step ``k, k_noise =
 split(k)`` (uncached and score level) or ``k, k_noise, k_probe = split(k,
@@ -11,8 +12,9 @@ split(k)`` (uncached and score level) or ``k, k_noise, k_probe = split(k,
 tests/test_torch_token_kv.py replay them.  Tolerances are
 tests/test_resident_sampling.py's: samples rtol 2e-5 / atol 5e-5, cache
 statistics rel 1e-5.  Against the port's own eager loop the values must be
-equal.  The launch accounting of captured graphs is held with a fake graph
-class; the card tests (tests/test_torch_cuda.py) hold real graphs.
+equal.  The launch accounting of the trainer's captured step graphs is held
+with a fake graph class; the card tests (tests/test_torch_cuda.py) hold
+real graphs, the resident chain's conditional nodes included.
 """
 
 import jax
@@ -120,7 +122,7 @@ def test_grouped_sampler_matches_jax(models, name):
             assert stats["mixed_steps"] == 1
         if name == "token":
             assert stats["mixed_steps"] and stats["cached_steps"] and stats["full_steps"]
-    # The graphed chain is made only where batches are grouped.
+    # The resident chain is made only where batches are grouped.
     assert bool(psamp._chains) == (num_batches >= per_call)
 
 

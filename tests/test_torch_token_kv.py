@@ -35,6 +35,7 @@ from fdtpu_torch.cache import e2crf as pe
 from fdtpu_torch.diffusion import VPScheduler
 from fdtpu_torch.models import MODE_CACHED, MODE_FULL, MODE_MIXED
 from fdtpu_torch.models import score_models as psm
+from fdtpu_torch.sampling import resident as president
 from fdtpu_torch.sampling import sampler as psampler
 from fdtpu_torch.utils.convert import load_jax_variables
 
@@ -165,7 +166,7 @@ def recorded_steps(kw):
     """Record each step's mode, and each TOPK step's rows, on both sides."""
     name = "token_policy" if kw["level"] == "token" else f"{kw.get('policy', 'event')}_policy"
     state_arg = 1 if name == "macro_policy" else 2
-    jorig, porig = getattr(jsampler, name), getattr(psampler, name)
+    jorig, porig = getattr(jsampler, name), getattr(president, name)
     jtop, ptop = jsampler.score_apply_topk, psampler.score_apply_topk
     rec = dict(jmode=[], pmode=[], jrows=[], prows=[])
 
@@ -177,7 +178,7 @@ def recorded_steps(kw):
 
     def ppolicy(*a):
         out = porig(*a)
-        rec["pmode"].append(out[0])
+        rec["pmode"].append(int(out[0]))
         return out
 
     def jtopk(variables, cfg, x, t, kv, idx):
@@ -197,7 +198,7 @@ def recorded_steps(kw):
     with pytest.MonkeyPatch.context() as mp:
         _interpret_blockdiag(mp)
         mp.setattr(jsampler, name, jpolicy)
-        mp.setattr(psampler, name, ppolicy)
+        mp.setattr(president, name, ppolicy)
         mp.setattr(jsampler, "score_apply_topk", jtopk)
         mp.setattr(psampler, "score_apply_topk", ptopk)
         mp.setattr(jsampler, "_sample_chain", jax.jit(

@@ -438,9 +438,176 @@ def test_trainer_steps_per_call_matches_jax(tmp_path, odd_datamodule, monkeypatc
     assert divergence is None, f"first parameter past 1e-4: {divergence}"
 
 
-def test_epochs_per_call_is_not_ported(tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Trainer(run_dir=tmp_path, run_id="r", epochs_per_call=2)
+class _JaxDeviceDraws:
+    """The draws of the JAX device loop (``_fit_on_device``) from
+    ``PRNGKey(seed)``, in its order: per epoch ``key, pkey = split(key)`` and
+    the permutation of ``pkey``; per train and val loss ``key, sk =
+    split(key)`` and the t and z of ``split(sk, 3)``."""
+
+    def __init__(self, seed, real_loss):
+        self.key, self.real_loss = jax.random.PRNGKey(seed), real_loss
+
+    def permutation(self, n, generator):
+        self.key, pkey = jax.random.split(self.key)
+        return torch.from_numpy(np.array(jax.random.permutation(pkey, n)).astype(np.int64))
+
+    def loss(self, network, scheduler, x, generator=None, **kw):
+        self.key, sk = jax.random.split(self.key)
+        key_t, key_z, _ = jax.random.split(sk, 3)
+        t = jax.random.uniform(key_t, (x.shape[0],), jnp.float32) * (1.0 - 1e-5) + 1e-5
+        z = jax.random.normal(key_z, tuple(x.shape), jnp.float32)
+        return self.real_loss(network, scheduler, x, timesteps=torch.from_numpy(np.array(t)),
+                              noise=torch.from_numpy(np.array(z)), **kw)
+
+
+def _fit_resident(tmp_path, dm, epochs, per_call, run_id, net=None, dropout=0.0, accumulate=1,
+                  horizon=None, **trainer_kw):
+    cfg = ScoreModelConfig(**dict(TINY, dropout=dropout))
+    if net is None:
+        net = init_score_model(cfg, torch.Generator().manual_seed(0), device="cpu")
+    n_steps = get_training_params(dm, horizon or epochs, accumulate)["num_training_steps"]
+    model = ScoreModel(cfg, net, _schedulers()[1], num_training_steps=n_steps)
+    trainer = Trainer(max_epochs=epochs, run_dir=tmp_path / "runs", run_id=run_id, seed=1,
+                      log_every_n_steps=1, epochs_per_call=per_call,
+                      accumulate_grad_batches=accumulate, **trainer_kw)
+    return trainer.fit(model, dm), trainer
+
+
+@pytest.mark.parametrize("accumulate", [1, 2])
+def test_resident_epochs_match_jax_fit_on_device(tmp_path, odd_datamodule, monkeypatch,
+                                                 accumulate):
+    """``Trainer(epochs_per_call=2)`` over three epochs (two calls, the
+    second shorter: JAX masks its tail, the port takes a one-epoch graph)
+    against the JAX package's ``_fit_on_device``, dropout off, the JAX
+    permutations, t and z handed in: a partial last batch (90 train rows in
+    batches of 16), the best checkpoint, ``accumulate_grad_batches`` 1 and 2;
+    per-step losses, val losses, rates, the best val loss and its epoch, and
+    the best-val parameters at this file's tolerance (1e-4)."""
+    from fdtpu.train.trainer import Trainer as JaxTrainer
+    from fdtpu_torch.train import trainer as trainer_mod
+
+    jcfg, variables, net = _pair(dropout=0.0)
+    dm = odd_datamodule
+    assert len(dm.train_dataloader().dataset) % dm.batch_size
+    j_dm = JaxSynthetic(data_dir=tmp_path / "jaxdata", max_len=16, num_samples=90,
+                        batch_size=16, fourier_transform=True, standardize=True, random_seed=2)
+    j_dm.prepare_data()
+    j_dm.setup()
+    n_steps = get_training_params(dm, 3, accumulate)["num_training_steps"]
+    jmodel = jsm.ScoreModel(config=jcfg, variables=variables,
+                            scheduler=_schedulers()[0], num_training_steps=n_steps)
+    jtrainer = JaxTrainer(max_epochs=3, run_dir=tmp_path / "jax", run_id="j", seed=1,
+                          log_every_n_steps=1, epochs_per_call=2, use_mesh=False,
+                          save_resume_state=False, accumulate_grad_batches=accumulate)
+    jmodel = jtrainer.fit(jmodel, j_dm)
+
+    draws = _JaxDeviceDraws(1, trainer_mod.sde_loss)
+    monkeypatch.setattr(trainer_mod, "sde_loss", draws.loss)
+    monkeypatch.setattr(trainer_mod, "draw_permutation", draws.permutation)
+    model, trainer = _fit_resident(tmp_path, dm, 3, 2, "port", net=net, accumulate=accumulate)
+    got, want = _records(trainer), _records(jtrainer)
+    assert [sorted(r) for r in got] == [sorted(r) for r in want]
+    assert sum("val/loss" in r for r in got) == 3
+    for g, w in zip(got, want):
+        assert g["step"] == w["step"] and g["epoch"] == w["epoch"]
+        for key in ("train/loss", "train/loss_epoch", "val/loss"):
+            if key in w:
+                np.testing.assert_allclose(g[key], w[key], rtol=1e-4, err_msg=f"{key} {w['step']}")
+        np.testing.assert_allclose(g["lr"], w["lr"], rtol=1e-6, atol=1e-10)
+    assert trainer.best_val_loss == pytest.approx(jtrainer.best_val_loss, rel=1e-4)
+    assert trainer.best_checkpoint.name.split("-")[0] == jtrainer.best_checkpoint.name.split("-")[0]
+    port = state_dict_to_jax_variables(model.network.state_dict())["params"]
+    divergence = _first_divergence(port, jax.tree.map(np.asarray, jmodel.variables["params"]),
+                                   atol=1e-4)
+    assert divergence is None, f"first parameter past 1e-4: {divergence}"
+
+
+def _epoch_records(trainer):
+    return {r["epoch"]: (r["train/loss_epoch"], r["val/loss"]) for r in _records(trainer)
+            if "val/loss" in r}
+
+
+def test_resident_epochs_do_not_depend_on_epochs_per_call(tmp_path, odd_datamodule):
+    """Four epochs, dropout on, at ``epochs_per_call`` 2 and 3 (tests/
+    test_trainer_device.py's invariant): the same draws in the same order,
+    so on the CPU the same losses, best val loss and parameters exactly."""
+    runs = {k: _fit_resident(tmp_path, odd_datamodule, 4, k, f"k{k}", dropout=0.1)
+            for k in (2, 3)}
+    (m2, t2), (m3, t3) = runs[2], runs[3]
+    assert _epoch_records(t2) == _epoch_records(t3) and len(_epoch_records(t2)) == 4
+    assert [r for r in _records(t2) if "train/loss" in r] == \
+        [r for r in _records(t3) if "train/loss" in r]
+    assert t2.best_val_loss == t3.best_val_loss == min(v for _, v in _epoch_records(t2).values())
+    for a, b in zip(m2.network.state_dict().values(), m3.network.state_dict().values()):
+        assert torch.equal(a, b)
+
+
+def test_resident_epochs_resume_reproduces_the_trajectory(tmp_path, odd_datamodule):
+    """Two epochs, then ``resume=True`` up to four, against four straight
+    (``epochs_per_call=2``, dropout on): the resumed epochs' losses, the best
+    val loss and the returned parameters exactly (the CPU runs the same
+    operations)."""
+    m_full, t_full = _fit_resident(tmp_path, odd_datamodule, 4, 2, "full", dropout=0.1)
+    _fit_resident(tmp_path, odd_datamodule, 2, 2, "part", dropout=0.1, horizon=4)
+    m_part, t_part = _fit_resident(tmp_path, odd_datamodule, 4, 2, "part", dropout=0.1,
+                                   resume=True)
+    full, part = _epoch_records(t_full), _epoch_records(t_part)
+    assert set(part) == {0, 1, 2, 3} and part == full
+    assert t_part.best_val_loss == t_full.best_val_loss
+    for a, b in zip(m_full.network.state_dict().values(), m_part.network.state_dict().values()):
+        assert torch.equal(a, b)
+
+
+def test_resident_epochs_are_freed_when_the_fit_returns(tmp_path, odd_datamodule, monkeypatch):
+    """The epoch loop keeps no reference to itself: it is freed (and on a
+    card its graphs) when ``fit`` returns, with the garbage collector off,
+    not at a later collection inside another graph's capture."""
+    import gc
+    import weakref
+
+    from fdtpu_torch.train import trainer as trainer_mod
+
+    refs = []
+    real_init = trainer_mod.ResidentEpochs.__init__
+
+    def init(self, *a, **k):
+        real_init(self, *a, **k)
+        refs.append(weakref.ref(self))
+
+    monkeypatch.setattr(trainer_mod.ResidentEpochs, "__init__", init)
+    gc.disable()
+    try:
+        _fit_resident(tmp_path, odd_datamodule, 2, 2, "freed")
+        assert len(refs) == 1 and refs[0]() is None
+    finally:
+        gc.enable()
+
+
+def test_padded_weights_give_the_mean_over_the_real_rows():
+    """A partial batch padded with zero-weight rows: the loss and its
+    gradient are those of the real rows alone (``padded_weights``): the loss
+    at rtol 1e-6, the gradients at rtol 1e-5 / atol 1e-8 (float32 sums over
+    another number of rows)."""
+    from fdtpu_torch.train.trainer import padded_weights
+
+    _, _, net = _pair()
+    net.requires_grad_(True)
+    _, psched = _schedulers()
+    x, t = (torch.from_numpy(a) for a in _batch(batch=6, seed=4))
+    z = torch.from_numpy(np.random.default_rng(5).standard_normal(x.shape).astype(np.float32))
+    w = torch.from_numpy(padded_weights(4, 1, 6)[0])
+    assert w.tolist() == [1, 1, 1, 1, 0, 0]
+    grads = []
+    for rows, weight in ((slice(0, 6), w), (slice(0, 4), None)):
+        net.zero_grad()
+        loss = sde_loss(net, psched, x[rows], timesteps=t[rows], noise=z[rows],
+                        sample_weight=weight)
+        loss.backward()
+        grads.append((loss.detach(), [p.grad.clone() for p in net.parameters()]))
+    (l6, g6), (l4, g4) = grads
+    torch.testing.assert_close(l6, l4, rtol=1e-6, atol=0)
+    for a, b in zip(g6, g4):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-8)
 
 
 @pytest.mark.parametrize("accumulate", [1, 2, 3])
