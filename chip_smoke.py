@@ -93,6 +93,22 @@ Phases (any failure exits non-zero and prints no result):
    and the "eval:"-style metrics of ``results.yaml``; the MLP and LSTM
    backbones at their configs' widths, one train-CLI epoch each, then a
    50-step uncached chain on their weights CUDA against the CPU.
+10. Data, last: the ECG raw tree written by ``fdtpu_torch.data.fixtures`` at
+   MIT-BIH's published size (87,554 and 21,892 rows of 188 columns) and read
+   by ``ECGDatamodule`` (seconds to write and to parse); the NASDAQ, NASA
+   (charge, discharge) and droughts trees at the JAX fixtures' sizes and
+   MIMIC from its ``.npy`` form, through ``prepare_data`` and ``setup``;
+   ``localization_metrics`` and ``smooth_frequency`` on CUDA against the CPU
+   over the ECG train set, with the 1000 series ``subsample_localization``
+   keeps compared; the flagship trained 2 epochs on ECG through the train
+   CLI (``subsample_localization``, full width, B1–B3 counted); the sample
+   CLI on that run at ``configs/sample.yaml``'s defaults, uncached and at the
+   score level; then ``fdtpu_torch.cli.ablation_cache`` and
+   ``benchmark_cache`` on it at those defaults from a temporary working
+   directory (every arm's row, finite values, cache statistics counting the
+   steps run; wall time, B1 and B4 launches).  ``benchmark_cache`` runs its
+   headline arms (``run_ablations=false``): with its 19 sweep arms the phase
+   took 241 s on the H100, past its 200 s share of the script (PERF.md §5).
 
 The levels and freq phases run their KV and FreqCa chains on one batch at
 T = 200 (``SHORT_CHAIN_STEPS``): the graphs phase runs each at T = 1000.
@@ -166,6 +182,11 @@ SW_DIRECTIONS = 1000
 # limit past rtol 2^-7, four times the largest reading on the H100 (1.95e-3,
 # PERF.md §6).
 MHA_SAME_ATOL = 8e-3
+# MIT-BIH's published rows (Kaggle shayanfazeli/heartbeat: mitbih_train.csv,
+# mitbih_test.csv), 188 columns each.
+ECG_ROWS = (87554, 21892)
+# ECG's frequency smoothing width checked CUDA against the CPU.
+ECG_SMOOTHER_WIDTH = 5.0
 # The CUDA API calls that put work on the card, as the profiler names
 # them: one kernel each, or one whole captured graph.
 LAUNCH_APIS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx",
@@ -1652,6 +1673,265 @@ def cli_phase(torch, bda, mha) -> dict:
     return out
 
 
+def _data_trees(tmp: Path) -> dict:
+    """The NASDAQ, NASA (charge, discharge) and droughts raw trees at the
+    JAX fixtures' sizes, and MIMIC from its ``.npy`` form, through
+    ``prepare_data`` and ``setup``: their shapes and times."""
+    import numpy as np
+
+    from fdtpu_torch.data import datamodules as dms
+    from fdtpu_torch.data import fixtures
+    from fdtpu_torch.data.preprocessing import mimic_preprocess_frames
+
+    out = {}
+    trees = {
+        "nasdaq": (fixtures.write_nasdaq_fixture, {}, dms.NASDAQDatamodule, {}, (252, 5)),
+        "nasa-charge": (fixtures.write_nasa_fixture, {}, dms.NASADatamodule,
+                        {"subdataset": "charge"}, (251, 4)),
+        "nasa-discharge": (fixtures.write_nasa_fixture, {"kind": "discharge"},
+                           dms.NASADatamodule, {"subdataset": "discharge"}, (134, 5)),
+        "droughts": (fixtures.write_droughts_fixture, {}, dms.USDroughtsDatamodule, {},
+                     (365, 7)),
+    }
+    for name, (write, wkw, cls, kw, shape) in trees.items():
+        root = tmp / name
+        t0 = time.perf_counter()
+        write(root, **wkw)
+        t1 = time.perf_counter()
+        dm = cls(data_dir=root, batch_size=2, **kw)
+        dm.prepare_data()
+        dm.setup("fit")
+        out[name] = dict(write_s=t1 - t0, prepare_setup_s=time.perf_counter() - t1,
+                         train=list(dm.X_train.shape), test=list(dm.X_test.shape))
+        check(dm.X_train.shape[1:] == shape and len(dm.X_train) + len(dm.X_test) > 0
+              and np.isfinite(dm.X_train).all(), f"data {name}: {dm.X_train.shape}")
+    # MIMIC: its frame pipeline on the fixture tables writes the .npy form.
+    root = tmp / "mimic"
+    (root / "mimiciii").mkdir(parents=True)
+    t0 = time.perf_counter()
+    mimic_preprocess_frames(*fixtures.mimic_fixture_tables(n_features=104, n_subjects=10),
+                            root / "mimiciii", random_seed=42)
+    dm = dms.MIMICIIIDatamodule(data_dir=root, batch_size=2)
+    dm.prepare_data()
+    dm.setup("fit")
+    out["mimiciii"] = dict(seconds=time.perf_counter() - t0, train=list(dm.X_train.shape),
+                           test=list(dm.X_test.shape))
+    check(dm.X_train.shape[1:] == (24, 40) and np.isfinite(dm.X_train).all(),
+          f"data mimiciii: {dm.X_train.shape}")
+    return out
+
+
+def _localization_on_card(torch, X) -> dict:
+    """``localization_metrics`` and ``smooth_frequency`` on the card against
+    the CPU over the whole ECG train set; the 1000 series
+    ``subsample_localization`` keeps from each."""
+    import numpy as np
+
+    from fdtpu_torch.ops import localization_metrics, smooth_frequency
+
+    x_cpu = torch.from_numpy(np.ascontiguousarray(X))
+    x_gpu = x_cpu.cuda()
+    t0 = time.perf_counter()
+    cpu = localization_metrics(x_cpu)
+    cpu_s = time.perf_counter() - t0
+    localization_metrics(x_gpu)  # warm-up: cuFFT's plan
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    gpu = localization_metrics(x_gpu)
+    torch.cuda.synchronize()
+    gpu_s = time.perf_counter() - t0
+    scores = [(a / b).cpu().numpy() for a, b in (cpu, gpu)]
+    ranks = [np.argsort(s) for s in scores]
+    kept = [set(r[:1000].tolist()) for r in ranks]
+    order = np.sort(scores[0])
+    smooth_cpu = smooth_frequency(x_cpu, ECG_SMOOTHER_WIDTH)
+    smooth_gpu = smooth_frequency(x_gpu, ECG_SMOOTHER_WIDTH).cpu()
+    out = dict(series=len(X), cpu_s=cpu_s, cuda_s=gpu_s,
+               time_rel_err=rel_err(gpu[0].cpu(), cpu[0]),
+               freq_rel_err=rel_err(gpu[1].cpu(), cpu[1]),
+               score_max_rel_err=float(np.max(np.abs(scores[1] - scores[0]) / scores[0])),
+               kept_differ=len(kept[0] - kept[1]), order_differ=int(
+                   np.sum(ranks[0][:1000] != ranks[1][:1000])),
+               score_gap_at_cut=float(order[1000] - order[999]),
+               smooth_rel_err=rel_err(smooth_gpu, smooth_cpu))
+    print("data localization", json.dumps(out), flush=True)
+    # Tolerance: 1e-5 relative, a few float32 ulps over a 187-point FFT and
+    # a 187-term product, summed in other orders on the two devices.
+    check(out["time_rel_err"] <= 1e-5 and out["freq_rel_err"] <= 1e-5
+          and out["smooth_rel_err"] <= 1e-5, f"data localization: CUDA vs CPU {out}")
+    return out
+
+
+def data_phase(torch, bda, mha) -> dict:
+    """The real datasets and the cache-study CLIs on the card: the ECG tree
+    written at MIT-BIH's published size and read by ``ECGDatamodule``; the
+    other raw trees at the JAX fixtures' sizes; the localization pass CUDA
+    against the CPU; the flagship trained 2 epochs on ECG through the train
+    CLI (``subsample_localization``); the sample CLI on that run at
+    ``configs/sample.yaml``'s defaults, uncached and at the score level; then
+    ``ablation_cache`` and ``benchmark_cache`` on it at those defaults, from a
+    temporary working directory."""
+    import os
+
+    import numpy as np
+
+    from fdtpu_torch.cli import ablation_cache, benchmark_cache
+    from fdtpu_torch.cli import sample as sample_cli
+    from fdtpu_torch.cli import train as train_cli
+    from fdtpu_torch.data import ECGDatamodule, fixtures
+    from fdtpu_torch.utils import yaml_subset
+
+    t_phase = time.perf_counter()
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp_name:
+        tmp = Path(tmp_name)
+        data = tmp / "data"
+        t0 = time.perf_counter()
+        fixtures.write_ecg_fixture(data, n_train=ECG_ROWS[0], n_test=ECG_ROWS[1])
+        t1 = time.perf_counter()
+        dm = ECGDatamodule(data_dir=data, batch_size=64)
+        dm.prepare_data()
+        t2 = time.perf_counter()
+        dm.setup("fit")
+        t3 = time.perf_counter()
+        line = dict(rows=list(ECG_ROWS), write_s=t1 - t0, prepare_s=t2 - t1, setup_s=t3 - t2,
+                    bytes=sum(p.stat().st_size for p in (data / "ecg").glob("*.csv")),
+                    train=list(dm.X_train.shape), test=list(dm.X_test.shape))
+        print("data ecg", json.dumps(line), flush=True)
+        check(dm.X_train.shape == (ECG_ROWS[0] - 1, 187, 1)
+              and dm.X_test.shape == (ECG_ROWS[1] - 1, 187, 1),
+              f"data ecg: not the header-dropped MIT-BIH shapes: {line}")
+        check(dm.y_train.dtype == np.int64 and set(np.unique(dm.y_train)) <= set(range(5))
+              and np.isfinite(dm.X_train).all(), "data ecg: labels or values")
+        out["ecg"] = line
+        out["trees"] = _data_trees(tmp / "trees")
+        print("data trees", json.dumps(out["trees"]), flush=True)
+        out["localization"] = _localization_on_card(torch, dm.X_train)
+        del dm
+
+        # Train the flagship on ECG through the train CLI.
+        runs = tmp / "runs"
+        _reset_counts(torch, bda, mha)
+        t0 = time.perf_counter()
+        runner = train_cli.main(["datamodule=ecg", f"datamodule.data_dir={data}",
+                                 "fourier_transform=true",
+                                 "datamodule.subsample_localization=true",
+                                 f"trainer.max_epochs={TRAIN_EPOCHS}", f"run_dir={runs}",
+                                 "+run_id=ecg"])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = _cli_counts(bda, mha)
+        model, tdm = runner.model, runner.datamodule
+        layers = model.config.num_layers
+        steps = TRAIN_EPOCHS * len(tdm.train_dataloader())
+        val_forwards = TRAIN_EPOCHS * len(tdm.val_dataloader())
+        records = [json.loads(r) for r in runner.trainer.metrics_path.read_text().splitlines()]
+        epochs = [r for r in records if "val/loss" in r]
+        line = dict(seconds=seconds, train_samples=len(tdm.X_train),
+                    train_samples_per_s=TRAIN_EPOCHS * len(tdm.X_train) / seconds,
+                    epoch_seconds=[r["epoch_time_s"] for r in epochs],
+                    losses=[(r["train/loss_epoch"], r["val/loss"]) for r in epochs], **counts)
+        print("data train", json.dumps(line), flush=True)
+        check(model.config.d_model == 72 and model.config.num_layers == 10
+              and model.config.max_len == 187 and len(tdm.X_train) == 1000,
+              f"data train: not the flagship on the 1000 localized ECG beats: {model.config}")
+        check(len(epochs) == TRAIN_EPOCHS and all(
+            math.isfinite(v) for pair in line["losses"] for v in pair), "data train: losses")
+        check(counts["b2"] == layers * steps and counts["b3"] == layers * steps
+              and counts["b1"] == layers * (steps + val_forwards),
+              f"data train: launches {counts} for {steps} steps, {val_forwards} val forwards")
+        out["train"] = line
+
+        # Sample from that run at configs/sample.yaml's defaults.
+        for name, extra in (("uncached", []), ("score", ["use_cache=true"] + [
+                f"+cache_kwargs.{k}={v}" for k, v in CACHE_KWARGS.items()])):
+            _reset_counts(torch, bda, mha)
+            t0 = time.perf_counter()
+            sampled = sample_cli.main([f"model_path={runs}", "model_id=latest", *extra])
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            counts = _cli_counts(bda, mha)
+            sampler = sampled.sampler
+            stats = sampler.get_cache_stats()
+            n = int(sampled.cfg["num_samples"])
+            steps_run = int(sampled.cfg["num_diffusion_steps"]) * (n // sampler.sample_batch_size)
+            full = stats["full_steps"] if sampler.use_cache else steps_run
+            samples = np.load(sampled.model_dir / "samples.npy")
+            results = yaml_subset.load(sampled.model_dir / "results.yaml")
+            scalars = {k: v for k, v in results.items() if not isinstance(v, list)}
+            line = dict(seconds=seconds, samples=len(samples), steps=steps_run, full_steps=full,
+                        batches_per_call=sampler.batches_per_call, metrics=scalars, **counts)
+            print(f"data sample {name}", json.dumps(line), flush=True)
+            check(samples.shape == (n, 187, 1) and np.isfinite(samples).all()
+                  and all(math.isfinite(v) for v in scalars.values()),
+                  f"data sample {name}: samples {samples.shape} or metrics")
+            check(counts["b1"] == layers * full,
+                  f"data sample {name}: {counts['b1']} B1 launches for {full} full forwards")
+            out[f"sample_{name}"] = line
+        # The cache CLIs' samplers run as many steps a call (the same defaults).
+        default_steps = out["sample_uncached"]["steps"]
+
+        # The cache-study CLIs, from a working directory of their own.
+        work = tmp / "work"
+        work.mkdir()
+        here = Path.cwd()
+        os.chdir(work)
+        try:
+            args = [f"model_path={runs}", "model_id=latest"]
+            _reset_counts(torch, bda, mha)
+            t0 = time.perf_counter()
+            results = ablation_cache.main(args)
+            torch.cuda.synchronize()
+            line = dict(seconds=time.perf_counter() - t0, arms=len(results),
+                        **_cli_counts(bda, mha))
+            check(list(results) == [name for name, _ in ablation_cache.arms()],
+                  f"data ablation: arms {list(results)}")
+            for name, entry in results.items():
+                stats = entry.get("cache_stats") or {}
+                check(all(math.isfinite(v) for v in entry.values() if isinstance(v, float))
+                      and all(math.isfinite(v) for v in stats.values()),
+                      f"data ablation {name}: {entry}")
+                check(not stats or stats["full_steps"] + stats["mixed_steps"]
+                      + stats["cached_steps"] == default_steps,
+                      f"data ablation {name}: stats count other steps: {stats}")
+            line["table"] = {name: [e["time_s"], e.get("speedup"), e.get("sw_vs_baseline"),
+                                    (e.get("cache_stats") or {}).get("steps_skipped_ratio")]
+                             for name, e in results.items()}
+            print("data ablation", json.dumps(line), flush=True)
+            check(line["b1"] > 0 and line["b4"] > 0, f"data ablation: launches {line}")
+            out["ablation"] = line
+
+            _reset_counts(torch, bda, mha)
+            t0 = time.perf_counter()
+            rows = benchmark_cache.main(args + ["run_ablations=false"])
+            torch.cuda.synchronize()
+            line = dict(seconds=time.perf_counter() - t0, arms=len(rows), **_cli_counts(bda, mha))
+            expected = (["baseline", "baseline_self(noise floor)"]
+                        + [name for name, _ in benchmark_cache.HEADLINE])
+            check([row["method"] for row in rows] == expected,
+                  f"data benchmark: arms {[row['method'] for row in rows]}")
+            for row in rows:
+                check(all(math.isfinite(v) for v in row.values() if isinstance(v, float)),
+                      f"data benchmark {row['method']}: {row}")
+                check("cache_full_steps" not in row or row["cache_full_steps"]
+                      + row["cache_mixed_steps"] + row["cache_cached_steps"] == default_steps,
+                      f"data benchmark {row['method']}: stats count other steps")
+            check((work / "outputs/cache_benchmark/benchmark_results.csv").exists()
+                  and (work / "ablation_results/ablation_sweep.csv").exists(),
+                  "data: a CLI's table is missing")
+            line["table"] = {row["method"]: [row["time_s"], row.get("speedup"),
+                                              row.get("sw_vs_baseline"),
+                                              row.get("cache_steps_skipped_ratio")]
+                             for row in rows}
+            print("data benchmark", json.dumps(line), flush=True)
+            check(line["b1"] > 0 and line["b4"] > 0, f"data benchmark: launches {line}")
+            out["benchmark"] = line
+        finally:
+            os.chdir(here)
+    print(f"data phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1697,8 +1977,11 @@ def main() -> int:
     train, trained, dm = timed("train", train_phase, torch, bda)
     evaluation = timed("eval", eval_phase, torch, bda, trained, dm)
     cli = timed("cli", cli_phase, torch, bda, mha)
+    data = timed("data", data_phase, torch, bda, mha)
     cli_runs = [cli["train"], cli["accumulate"]] + [cli[f"sample_{name}"]
                                                     for name in ("uncached", "score", "token")]
+    cli_runs += [data[name] for name in ("train", "sample_uncached", "sample_score",
+                                         "ablation", "benchmark")]
     level_chains = [c for c in levels.values() if isinstance(c, dict)]
     level_chains += list(freq_chains.values())
     level_chains += [run for name, line in graphed.items() if name != "train"

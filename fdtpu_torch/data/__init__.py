@@ -1,4 +1,24 @@
-from fdtpu_torch.data.datamodules import SyntheticDatamodule
+from fdtpu_torch.data.datamodules import (
+    DATAMODULE_REGISTRY,
+    Datamodule,
+    ECGDatamodule,
+    MIMICIIIDatamodule,
+    NASADatamodule,
+    NASDAQDatamodule,
+    SyntheticDatamodule,
+    USDroughtsDatamodule,
+)
 from fdtpu_torch.data.dataset import DiffusionDataset, NumpyLoader
 
-__all__ = ["DiffusionDataset", "NumpyLoader", "SyntheticDatamodule"]
+__all__ = [
+    "DATAMODULE_REGISTRY",
+    "Datamodule",
+    "DiffusionDataset",
+    "ECGDatamodule",
+    "MIMICIIIDatamodule",
+    "NASADatamodule",
+    "NASDAQDatamodule",
+    "NumpyLoader",
+    "SyntheticDatamodule",
+    "USDroughtsDatamodule",
+]

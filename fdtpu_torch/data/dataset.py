@@ -25,7 +25,8 @@ class DiffusionDataset:
     """Holds (optionally frequency-transformed, standardized) series.
 
     ``X_ref`` supplies the standardization statistics (a validation set is
-    standardized with train-set statistics).  The std uses ddof=1 like torch
+    standardized with train-set statistics); ``y`` (labels, ECG's classes) is
+    kept beside the series: an item carries it, the loader's batches do not.  The std uses ddof=1 like torch
     ``Tensor.std``; a degenerate std (a single reference sample, or a
     constant feature) falls back to 1.
     """
@@ -33,6 +34,7 @@ class DiffusionDataset:
     def __init__(
         self,
         X: np.ndarray,
+        y: Optional[np.ndarray] = None,
         fourier_transform: bool = False,
         standardize: bool = False,
         X_ref: Optional[np.ndarray] = None,
@@ -41,6 +43,7 @@ class DiffusionDataset:
         if fourier_transform:
             X = _host_dft(X)
         self.X = X
+        self.y = None if y is None else np.asarray(y)
         self.standardize = standardize
         if X_ref is None:
             X_ref = X
@@ -62,10 +65,12 @@ class DiffusionDataset:
         return len(self.X)
 
     def __getitem__(self, index: int) -> dict[str, np.ndarray]:
-        x = self.X[index]
+        data = {"X": self.X[index]}
         if self.standardize:
-            x = (x - self.feature_mean) / self.feature_std
-        return {"X": x}
+            data["X"] = (data["X"] - self.feature_mean) / self.feature_std
+        if self.y is not None:
+            data["y"] = self.y[index]
+        return data
 
 
 class NumpyLoader:

@@ -1,5 +1,5 @@
 """Orthonormal real-DFT packing and the spectral ops (port of
-``fdtpu/ops/fourier.py:29-174, 237-370``).
+``fdtpu/ops/fourier.py:29-370``).
 
 Packing convention: a real series of length ``T`` maps to
 ``[Re(0..Nyq) ‖ Im(1..Nyq-1)]`` along the time axis, a real tensor of the same
@@ -77,6 +77,41 @@ def spectral_density(x: torch.Tensor, apply_dft: bool = True) -> torch.Tensor:
     (``fdtpu/ops/fourier.py:159-174``)."""
     re, im = _packed_re_im(dft(x) if apply_dft else x)
     return re**2 + im**2
+
+
+def localization_metrics(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Cyclic-distance delocalization of each series in time and in frequency
+    (``fdtpu/ops/fourier.py:177-209``): the least, over a centre, of the
+    energy-weighted squared cyclic distance to it.  Returns ``(time, freq)``,
+    each ``(batch,)``, on ``x``'s device."""
+    max_len = x.shape[1]
+    x_energy = torch.sum(x**2, dim=2) / torch.sum(x**2, dim=(1, 2))[:, None]
+
+    # Energy over frequency, mirrored beyond Nyquist to the full length.
+    x_spec = spectral_density(x)
+    mirror = x_spec[:, 1:, :] if max_len % 2 != 0 else x_spec[:, 1:-1, :]
+    x_spec = torch.cat([x_spec, torch.flip(mirror, dims=[1])], dim=1)
+    x_spec = torch.sum(x_spec, dim=2) / torch.sum(x_spec, dim=(1, 2))[:, None]
+    assert x_spec.shape[1] == max_len
+
+    t = torch.arange(max_len, dtype=x.dtype, device=x.device)
+    diff = torch.abs(t[:, None] - t[None, :])
+    cyc2 = torch.minimum(diff, max_len - diff) ** 2
+    x_loc = torch.min(x_energy @ cyc2, dim=1).values
+    x_spec_loc = torch.min(x_spec @ cyc2, dim=1).values
+    return x_loc, x_spec_loc
+
+
+def smooth_frequency(x: torch.Tensor, sigma: float) -> torch.Tensor:
+    """Gaussian smoothing of the packed spectrum (``fdtpu/ops/fourier.py:
+    212-235``): a column-normalized kernel over the paired frequency index
+    ``[0..Nyq] ∪ [1..]``, which at even lengths keeps the Nyquist row as the
+    JAX package does (the reference's float ``arange`` drops it)."""
+    k = packed_freq_index(x.shape[1], device=x.device).to(torch.float32)
+    kernel = torch.exp(-(((k[:, None] - k[None, :]) / sigma) ** 2) / 2)
+    kernel = kernel / torch.sum(kernel, dim=0, keepdim=True)
+    x_tilde = torch.einsum("btc,ts->bsc", dft(x), kernel)
+    return idft(x_tilde)
 
 
 def frequency_decompose_fft(

@@ -1,9 +1,7 @@
 """Builders: composed config dicts → the port's objects (port of
 ``fdtpu/utils/builders.py:27-118``).
 
-Explicit registries map group names to classes, as in the JAX package.  Of
-the datamodules only ``synthetic`` is ported; the others need downloaded data
-and are still to port (ROADMAP.md A.6), and name that when asked for.
+Explicit registries map group names to classes, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -15,29 +13,22 @@ from typing import Any, Optional
 
 import torch
 
-from fdtpu_torch.data.datamodules import SyntheticDatamodule
+from fdtpu_torch.data.datamodules import DATAMODULE_REGISTRY, Datamodule
 from fdtpu_torch.diffusion.sde import SDE
 from fdtpu_torch.metrics import MarginalWasserstein, MetricCollection, SlicedWasserstein
 from fdtpu_torch.models.score_models import ScoreModel, ScoreModelConfig, init_score_model
 from fdtpu_torch.train.checkpoint import SCHEDULER_REGISTRY
 from fdtpu_torch.utils.device import DeviceLike, resolve_device
 
-DATAMODULE_REGISTRY = {"synthetic": SyntheticDatamodule}
-# The JAX package's other datamodules (fdtpu/data/datamodules.py:484-491).
-UNPORTED_DATAMODULES = ("ecg", "mimiciii", "nasdaq", "nasa", "usdroughts")
 METRIC_REGISTRY = {
     "SlicedWasserstein": SlicedWasserstein,
     "MarginalWasserstein": MarginalWasserstein,
 }
 
 
-def build_datamodule(cfg: dict[str, Any]) -> SyntheticDatamodule:
+def build_datamodule(cfg: dict[str, Any]) -> Datamodule:
     dm_cfg = dict(cfg["datamodule"])
     name = dm_cfg.pop("name")
-    if name in UNPORTED_DATAMODULES:
-        raise NotImplementedError(
-            f"datamodule={name} is not ported yet (ROADMAP.md A.6, remaining data); "
-            "the port has datamodule=synthetic")
     return DATAMODULE_REGISTRY[name](**dm_cfg)
 
 

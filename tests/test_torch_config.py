@@ -11,6 +11,8 @@ builders' model configs are compared exactly; the metrics at rtol 1e-6
 
 import datetime
 import math
+import shutil
+import sys
 from pathlib import Path
 
 import numpy as np
@@ -225,10 +227,24 @@ def test_build_datamodule_synthetic(tmp_path):
 
 
 @pytest.mark.parametrize("name", ["ecg", "mimiciii", "nasdaq", "nasa", "usdroughts"])
-def test_build_datamodule_names_the_roadmap_for_the_others(name):
-    cfg = config.compose_config(CONFIG_DIR, "train", [f"datamodule={name}"])
-    with pytest.raises(NotImplementedError, match="A.6"):
-        builders.build_datamodule(cfg)
+def test_build_datamodule_names_the_roadmap_for_the_others(name, tmp_path, monkeypatch):
+    """The real datamodules build as the JAX builder's, and with no data
+    they stop with the JAX package's informative error (no download: the
+    kaggle import is made to fail)."""
+    monkeypatch.setitem(sys.modules, "kaggle", None)
+    cfg = config.compose_config(CONFIG_DIR, "train", [f"datamodule={name}",
+                                                      f"datamodule.data_dir={tmp_path}"])
+    dm, jdm = builders.build_datamodule(cfg), jax_builders.build_datamodule(cfg)
+    assert type(dm).__name__ == type(jdm).__name__
+    assert dm.data_dir == jdm.data_dir and dm.batch_size == jdm.batch_size
+    errors = []
+    for d in (jdm, dm):
+        shutil.rmtree(tmp_path, ignore_errors=True)
+        with pytest.raises((RuntimeError, AssertionError)) as info:
+            d.prepare_data()
+        errors.append((info.type, str(info.value)))
+    assert errors[0] == errors[1]
+    assert "kaggle" in errors[0][1] or "MIMIC" in errors[0][1]
 
 
 def test_resolve_model_dir_equals_jax(tmp_path):
