@@ -59,19 +59,21 @@ Phases (any failure exits non-zero and prints no result):
    launches are counted.  It runs at ``configs/sampler/default.yaml``'s
    ``batches_per_call: 2``: the resident chain.
 8. Graphs (run before 5): each flagship chain (uncached, score, token, KV
-   event and macro, the three of phase 6) at T = 1000 on 256 samples in
-   batches of 128, with ``batches_per_call`` 1 (the eager loop, a device
-   read a step) and 2 (the resident chain: each trajectory one replay of a
-   graph with a WHILE node over the steps and an IF node per branch, the
-   E²-CRF decisions taken on the device): the same mode at every step,
-   equal cache statistics, samples bitwise equal, the launch checks through
-   replays, B1 and B4 inside the branches; the uncached and score-level
-   samples taken back to the time domain; ms/step, samples/s, and in a
+   event and macro, the three of phase 6) on 256 samples in batches of 128,
+   with ``batches_per_call`` 1 (the eager loop, a device read a step) and 2
+   (the resident chain: each trajectory one replay of a graph with a WHILE
+   node over the steps and an IF node per branch, the E²-CRF decisions
+   taken on the device): the same mode at every step, equal cache
+   statistics, samples bitwise equal, the launch checks through replays, B1
+   and B4 inside the branches; two resident trajectories alone run under
+   ``set_sync_debug_mode("error")`` (no device read inside), with their
+   device span over their wall time.  The uncached, score and token chains
+   (``REFERENCE_CHAINS``) run at T = 1000, their samples (uncached, score)
+   taken back to the time domain, with ms/step, samples/s, and in a
    profiled call of two 50-step trajectories the launch API calls a
    trajectory, the device-to-host copies a call (at most one, the
-   statistics) and the busy share; two resident trajectories alone run
-   under ``set_sync_debug_mode("error")`` (no device read inside), with
-   their device span over their wall time.
+   statistics) and the busy share; the KV and FreqCa/FreSca chains run at
+   T = 200 (their T = 1000 times are PERF.md §5's).
    ``Trainer.fit`` at ``steps_per_call`` 1 and 16 (samples/s; per-step
    losses and final parameters against each other at the JAX chunking
    test's tolerances), 16 steps eager against one call of 16 replays
@@ -79,7 +81,7 @@ Phases (any failure exits non-zero and prints no result):
    ``epochs_per_call`` 2 (the device-resident epoch loop, a captured graph
    a call) over 2 × 2 epochs.  Phase 5's ``Trainer.fit`` runs at the
    default ``steps_per_call`` (16).
-9. CLIs, last: ``python -m fdtpu_torch.cli.train``'s ``main`` on the synthetic
+9. CLIs: ``python -m fdtpu_torch.cli.train``'s ``main`` on the synthetic
    data (2000 samples of 187, 2 epochs, ``configs/train.yaml`` and the
    default score model at its full width, ``attention_impl: auto`` resolving
    to B1) with B1–B3 counted; ``Trainer(resume=True)`` after one epoch
@@ -93,7 +95,7 @@ Phases (any failure exits non-zero and prints no result):
    and the "eval:"-style metrics of ``results.yaml``; the MLP and LSTM
    backbones at their configs' widths, one train-CLI epoch each, then a
    50-step uncached chain on their weights CUDA against the CPU.
-10. Data, last: the ECG raw tree written by ``fdtpu_torch.data.fixtures`` at
+10. Data: the ECG raw tree written by ``fdtpu_torch.data.fixtures`` at
    MIT-BIH's published size (87,554 and 21,892 rows of 188 columns) and read
    by ``ECGDatamodule`` (seconds to write and to parse); the NASDAQ, NASA
    (charge, discharge) and droughts trees at the JAX fixtures' sizes and
@@ -109,6 +111,20 @@ Phases (any failure exits non-zero and prints no result):
    steps run; wall time, B1 and B4 launches).  ``benchmark_cache`` runs its
    headline arms (``run_ablations=false``): with its 19 sweep arms the phase
    took 241 s on the H100, past its 200 s share of the script (PERF.md §5).
+11. Table 2 and the viz tables, last: ``fdtpu_torch.cli.validate_real_data``
+   in this process on ECG at MIT-BIH's size (the data phase's tree, written
+   anew), both domains, the flagship at full width trained 2 epochs on the
+   1000 localized beats, 256 samples at T = 1000 in batches of 128,
+   uncached and at the score level's operating point ("table2 <domain>"
+   lines: train and sample seconds, skipped share, time-domain SW, B1 = 10
+   × full forwards and B2 = B3 = 10 × train steps); its JSON held to the
+   Table-2 schema; ``all --fixture --smoke --domains frequency`` over the
+   seven fixture trees ("table2 fixtures"); then ``fdtpu_torch.viz`` on
+   those run directories (per-distance rows, summary tables as CSV and
+   LaTeX, the run table, spectral profiles; each file checked written) and
+   ``spectral_interpretation.process_dataset`` on the MIT-BIH-size ECG
+   datamodule with the localization on the card ("viz" line).  Figures are
+   not drawn: the card's machine has no matplotlib.
 
 The levels and freq phases run their KV and FreqCa chains on one batch at
 T = 200 (``SHORT_CHAIN_STEPS``): the graphs phase runs each at T = 1000.
@@ -171,6 +187,11 @@ GRAPH_CHAINS = {
     "kv-macro": (KV_MACRO_KWARGS, {}),
     **FREQ_CHAINS,
 }
+# The chains whose T = 1000 numbers are the port's reference: the graphs
+# phase runs them at NUM_STEPS and profiles a window of each; the KV and
+# FreqCa/FreSca chains run there at SHORT_CHAIN_STEPS (their T = 1000 eager
+# and resident times are PR 9's, PERF.md §5).
+REFERENCE_CHAINS = ("uncached", "score", "token")
 # The graphs phase's profiled window: one call of two trajectories of this many steps.
 WINDOW_STEPS = 50
 # configs/sampler/default.yaml's batches_per_call, at which the evaluation runs.
@@ -943,8 +964,9 @@ def freq_options_phase(torch, bda, mha) -> dict:
 def graphs_phase(torch, bda, mha) -> dict:
     """Each flagship chain with ``batches_per_call`` 1 (the eager loop, a
     device read a step) and 2 (the resident chain: a trajectory one replay
-    of a graph whose conditional nodes take the decisions), T = 1000, 256
-    samples in batches of 128: the same mode at every step
+    of a graph whose conditional nodes take the decisions), 256 samples in
+    batches of 128, T = 1000 for ``REFERENCE_CHAINS`` and T = 200 for the
+    others (which skip the profiled window): the same mode at every step
     (``last_modes``), the same cache statistics, samples bitwise equal, B1
     and B4 counted through the replays; ms/step and samples/s (the resident
     chain's without its first call's capture, timed apart); then one call
@@ -973,10 +995,11 @@ def graphs_phase(torch, bda, mha) -> dict:
         dm.setup()
         mean, std = dm.feature_mean_and_std
     layers = cfg.num_layers
-    steps = NUM_STEPS * (NUM_SAMPLES // SAMPLE_BATCH)
     results = {}
     for name, (kwargs, options) in GRAPH_CHAINS.items():
         level = kwargs["level"] if kwargs else None
+        num_steps = NUM_STEPS if name in REFERENCE_CHAINS else SHORT_CHAIN_STEPS
+        steps = num_steps * (NUM_SAMPLES // SAMPLE_BATCH)
         runs = {}
         t_chain = time.perf_counter()
         for per_call in (1, 2):
@@ -1000,7 +1023,7 @@ def graphs_phase(torch, bda, mha) -> dict:
             resident.Chain._capture = timed_capture
             try:
                 t0 = time.perf_counter()
-                samples = sampler.sample(NUM_SAMPLES, NUM_STEPS,
+                samples = sampler.sample(NUM_SAMPLES, num_steps,
                                          generator=torch.Generator(device="cuda").manual_seed(2))
                 torch.cuda.synchronize()
                 first_call = time.perf_counter() - t0
@@ -1028,8 +1051,8 @@ def graphs_phase(torch, bda, mha) -> dict:
                 series = idft(torch.from_numpy(samples.cpu().numpy() * std + mean).float())
                 check(bool(torch.isfinite(series).all()),
                       f"graphs {name}: de-standardized series not finite")
-            run = dict(ms_per_step=1e3 * seconds / steps, samples_per_s=NUM_SAMPLES / seconds,
-                       launches_b1=b1, launches_b4=b4)
+            run = dict(steps=num_steps, ms_per_step=1e3 * seconds / steps,
+                       samples_per_s=NUM_SAMPLES / seconds, launches_b1=b1, launches_b4=b4)
             if per_call > 1:
                 run.update(capture_seconds=sum(captures),
                            first_call_ms_per_step=1e3 * first_call / steps)
@@ -1041,6 +1064,12 @@ def graphs_phase(torch, bda, mha) -> dict:
                 check(run["b1_in_branches"] > 0, f"graphs {name}: no branch holds B1")
                 if b4_steps:
                     check(run["b4_in_branches"] > 0, f"graphs {name}: no branch holds B4")
+            if name not in REFERENCE_CHAINS:
+                modes = sampler.last_modes
+                if per_call > 1:
+                    run.update(resident_trajectories(torch, sampler))
+                runs[per_call] = (samples, modes, stats, run)
+                continue
             # One call of two short trajectories, profiled (the resident
             # chain's first call captures its graph: it is run once before).
             window = make()
@@ -1932,6 +1961,217 @@ def data_phase(torch, bda, mha) -> dict:
     return out
 
 
+# The Table-2 harness's ECG run on the card: the flagship at full width, 2
+# epochs on the 1000 most time-localized beats (as the data phase's train
+# CLI), 256 samples at T = 1000 in batches of 128, both domains.
+TABLE2_ARGS = ["--epochs", str(TRAIN_EPOCHS), "--num-samples", str(NUM_SAMPLES),
+               "--steps", str(NUM_STEPS), "--sample-batch", str(SAMPLE_BATCH),
+               "--override", "datamodule.subsample_localization=true"]
+# What tests/test_table2_schema.py's assert_table2_schema requires of a JSON.
+TABLE2_PAPER_DATASETS = ("droughts", "ecg", "nasa_charge", "nasa_discharge", "nasdaq")
+
+
+def table2_schema_errors(payload: dict, dataset: str, domains=("frequency",)) -> list[str]:
+    """The ways ``payload`` misses the Table-2 schema (none if it holds)."""
+    errors = []
+    proto = payload.get("protocol", {})
+    errors += [f"protocol lacks {k}" for k in ("epochs", "num_samples", "steps", "seed",
+                                                "cached_kwargs") if k not in proto]
+    if payload.get("dataset") != dataset:
+        errors.append(f"dataset {payload.get('dataset')!r}")
+    if proto.get("fixture_data") and "warning" not in payload:
+        errors.append("fixture data without a warning")
+    for domain in domains:
+        arms = payload.get("domains", {}).get(domain, {}).get("arms", {})
+        for arm in ("baseline", "cached"):
+            row = arms.get(arm, {})
+            if not (isinstance(row.get("time_sliced_wasserstein_mean"), float)
+                    and isinstance(row.get("time_sliced_wasserstein_std"), float)
+                    and row.get("sample_time_s", -1) >= 0):
+                errors.append(f"{domain} {arm} row {sorted(row)}")
+        if not arms.get("cached", {}).get("cache_stats", {}).get("steps_skipped_ratio", -1) >= 0:
+            errors.append(f"{domain} cached arm lacks steps_skipped_ratio")
+    summary = payload.get("summary", {})
+    if None in (summary.get("fdtpu_baseline_sw", [None])[0],
+                summary.get("fdtpu_cached_sw", [None])[0]):
+        errors.append("summary lacks the SW pair")
+    ref = payload.get("reference_table2")
+    if dataset in TABLE2_PAPER_DATASETS:
+        if ref is None or len(ref["baseline_sw"]) != 2 or summary.get("reference") != ref:
+            errors.append("reference row")
+    elif ref is not None:
+        errors.append("a reference row for a dataset outside the paper's table")
+    return errors
+
+
+def table2_phase(torch, bda, mha) -> dict:
+    """The port's Table-2 harness (``fdtpu_torch.cli.validate_real_data``) in
+    this process: ECG at MIT-BIH's size (the data phase's tree, written anew)
+    through both domains at the flagship's full width, its launches counted
+    a train and a sample call (B1 = layers × full forwards, B2 = B3 = layers
+    × train steps), the JSON held to the Table-2 schema; then ``all
+    --fixture --smoke --domains frequency`` over the seven fixture trees;
+    then the viz tables on those run directories."""
+    import os
+
+    from fdtpu_torch.cli import sample as sample_cli
+    from fdtpu_torch.cli import train as train_cli
+    from fdtpu_torch.cli import validate_real_data as harness
+    from fdtpu_torch.data import fixtures
+
+    t_phase = time.perf_counter()
+    calls = []
+    real_train, real_sample = train_cli.TrainingRunner.train, sample_cli.SamplingRunner.sample
+
+    def counted(real, kind):
+        def call(self):
+            _reset_counts(torch, bda, mha)
+            t0 = time.perf_counter()
+            out = real(self)
+            torch.cuda.synchronize()
+            calls.append((kind, self, time.perf_counter() - t0, _cli_counts(bda, mha)))
+            return out
+        return call
+
+    out = {}
+    here = Path.cwd()
+    with tempfile.TemporaryDirectory() as tmp_name:
+        tmp = Path(tmp_name)
+        fixtures.write_ecg_fixture(tmp / "data", n_train=ECG_ROWS[0], n_test=ECG_ROWS[1])
+        train_cli.TrainingRunner.train = counted(real_train, "train")
+        sample_cli.SamplingRunner.sample = counted(real_sample, "sample")
+        os.chdir(tmp)
+        try:
+            t0 = time.perf_counter()
+            code = harness.main(["ecg", "--data-dir", str(tmp / "data"),
+                                 "--run-dir", str(tmp / "runs"),
+                                 "--out", str(tmp / "table2_ecg_full.json"), *TABLE2_ARGS])
+            ecg_seconds = time.perf_counter() - t0
+            check(code == 0, f"table2 ecg: exit code {code}")
+            ecg_calls, calls[:] = list(calls), []
+            t0 = time.perf_counter()
+            code = harness.main(["all", "--fixture", "--smoke", "--domains", "frequency",
+                                 "--data-dir", str(tmp / "fixtures"),
+                                 "--run-dir", str(tmp / "fixture_runs")])
+            fixture_seconds = time.perf_counter() - t0
+            check(code == 0, f"table2 fixtures: exit code {code}")
+        finally:
+            os.chdir(here)
+            train_cli.TrainingRunner.train, sample_cli.SamplingRunner.sample = (
+                real_train, real_sample)
+        payload = json.loads((tmp / "table2_ecg_full.json").read_text())
+        errors = table2_schema_errors(payload, "ecg", domains=("frequency", "time"))
+        check(not errors, f"table2 ecg: not the Table-2 schema: {errors}")
+        totals = dict(b1=0, b2=0, b3=0, b4=0)
+        for i, domain in enumerate(("frequency", "time")):
+            (_, trainer, train_s, tc), *arms = ecg_calls[3 * i: 3 * i + 3]
+            entry = payload["domains"][domain]
+            layers = trainer.model.config.num_layers
+            steps = TRAIN_EPOCHS * len(trainer.datamodule.train_dataloader())
+            val = TRAIN_EPOCHS * len(trainer.datamodule.val_dataloader())
+            check(trainer.model.config.d_model == 72 and layers == 10
+                  and len(trainer.datamodule.X_train) == 1000,
+                  f"table2 {domain}: not the flagship on the 1000 localized beats")
+            check(tc["b2"] == tc["b3"] == layers * steps and tc["b1"] == layers * (steps + val),
+                  f"table2 {domain} train: launches {tc} for {steps} steps, {val} val forwards")
+            line = dict(train_s=entry["train_time_s"], train_call_s=train_s,
+                        train_samples=len(trainer.datamodule.X_train), train_steps=steps,
+                        val_forwards=val, best_val_loss=entry["best_val_loss"], arms={})
+            counts = dict(tc)
+            for (_, runner, sample_s, sc), arm in zip(arms, ("baseline", "cached")):
+                row = entry["arms"][arm]
+                stats = runner.sampler.get_cache_stats() if runner.sampler.use_cache else {}
+                full = stats.get("full_steps", NUM_STEPS * (NUM_SAMPLES // SAMPLE_BATCH))
+                check(sc["b1"] == layers * full and sc["b2"] == 0,
+                      f"table2 {domain} {arm}: {sc} for {full} full forwards")
+                check(math.isfinite(row["time_sliced_wasserstein_mean"]),
+                      f"table2 {domain} {arm}: SW {row['time_sliced_wasserstein_mean']}")
+                line["arms"][arm] = dict(
+                    sample_s=row["sample_time_s"], sample_call_s=sample_s, full_steps=full,
+                    steps_skipped_ratio=stats.get("steps_skipped_ratio", 0.0),
+                    time_sw_mean=row["time_sliced_wasserstein_mean"],
+                    time_sw_std=row["time_sliced_wasserstein_std"], b1=sc["b1"])
+                counts = {k: counts[k] + sc[k] for k in counts}
+            line.update(counts)
+            totals = {k: totals[k] + counts[k] for k in totals}
+            print(f"table2 {domain}", json.dumps(line), flush=True)
+            out[domain] = line
+        out["summary"] = payload["summary"]
+        out["protocol"] = payload["protocol"]
+        out["ecg_seconds"] = ecg_seconds
+        fixture_counts = {k: sum(c[3][k] for c in calls) for k in totals}
+        fixture_line = dict(seconds=fixture_seconds, **fixture_counts, summaries={})
+        datasets = sorted(harness.DATASETS)
+        for ds in datasets:
+            payload = json.loads((tmp / f"outputs/table2_torch/table2_{ds}.json").read_text())
+            errors = table2_schema_errors(payload, ds)
+            check(not errors, f"table2 fixture {ds}: not the Table-2 schema: {errors}")
+            fixture_line["summaries"][ds] = dict(summary=payload["summary"],
+                                                 fixture_form=payload["protocol"].get(
+                                                     "fixture_form"))
+        check(fixture_counts["b1"] > 0 and fixture_counts["b2"] > 0,
+              f"table2 fixtures: launches {fixture_counts}")
+        print("table2 fixtures", json.dumps(fixture_line), flush=True)
+        out["fixtures"] = fixture_line
+        out["counts"] = {k: totals[k] + fixture_counts[k] for k in totals}
+        out["viz"] = viz_tables(torch, tmp, datasets)
+    print(f"table2 phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return out
+
+
+def viz_tables(torch, tmp: Path, datasets: list[str]) -> dict:
+    """``fdtpu_torch.viz``'s tables on the Table-2 run directories (the ECG
+    pair and the seven fixture runs): per-distance rows, the summary tables
+    (CSV and LaTeX), the LaTeX run table and the spectral profiles, each file
+    checked written; then ``spectral_interpretation.process_dataset`` on the
+    MIT-BIH-size ECG datamodule with the localization on the card."""
+    import numpy as np
+
+    from fdtpu_torch import viz
+    from fdtpu_torch.data import ECGDatamodule
+
+    line = {}
+    for name, runs, run_ids in (
+        ("ecg", tmp / "runs", [f"table2_ecg_{d}" for d in ("frequency", "time")]),
+        ("fixtures", tmp / "fixture_runs", [f"table2_{ds}_frequency"
+                                            for ds in datasets]),
+    ):
+        out = tmp / "viz" / name
+        t0 = time.perf_counter()
+        metrics, baselines = viz.process_run_metrics(run_ids, runs, out)
+        tables = {metric: viz.create_summary_table(metrics, metric, out / "tables")
+                  for metric in dict.fromkeys(r["Metric"] for r in metrics)}
+        latex = viz.results_to_latex(viz.process_results(runs))
+        spectral = viz.process_spectral_analysis(run_ids, runs, out)
+        seconds = time.perf_counter() - t0
+        written = sorted(str(p.relative_to(out)) for p in out.rglob("*") if p.is_file())
+        want = ["baselines.csv", "metrics.csv", "spectral_density.csv"] + [
+            f"tables/{m.lower().replace(' ', '_')}{suffix}" for m in tables
+            for suffix in ("_summary.csv", ".tex")]
+        check(sorted(want) == written, f"viz {name}: wrote {written}, not {sorted(want)}")
+        check(all(len(g.rows) > 0 and g.values.size > 0 for g in tables.values())
+              and latex.startswith("\\begin{tabular}") and spectral,
+              f"viz {name}: empty tables")
+        line[name] = dict(seconds=seconds, metric_rows=len(metrics),
+                          baseline_rows=len(baselines), spectral_rows=len(spectral),
+                          summary_rows={m: len(g.rows) for m, g in tables.items()},
+                          files=len(written))
+    t0 = time.perf_counter()
+    dm = ECGDatamodule(data_dir=tmp / "data")
+    spectral, temporal, loc, joint = viz.process_dataset("ECG", dm, device="cuda")
+    line["process_dataset"] = dict(seconds=time.perf_counter() - t0, series=len(dm.X_train),
+                                   frequencies=len(spectral["Normalized Frequency"]),
+                                   localization_rows=len(loc["Delocalization"]))
+    check(len(dm.X_train) == ECG_ROWS[0] - 1
+          and len(loc["Delocalization"]) == 2 * len(dm.X_train)
+          and all(bool(np.isfinite(v).all()) for v in (spectral["Normalized Spectral Density"],
+                                                       temporal["Normalized Energy"],
+                                                       joint["Delocalization Time"])),
+          f"viz process_dataset: {line['process_dataset']}")
+    print("viz", json.dumps(line), flush=True)
+    return line
+
+
 def main() -> int:
     import torch
 
@@ -1978,10 +2218,12 @@ def main() -> int:
     evaluation = timed("eval", eval_phase, torch, bda, trained, dm)
     cli = timed("cli", cli_phase, torch, bda, mha)
     data = timed("data", data_phase, torch, bda, mha)
+    table2 = timed("table2", table2_phase, torch, bda, mha)
     cli_runs = [cli["train"], cli["accumulate"]] + [cli[f"sample_{name}"]
                                                     for name in ("uncached", "score", "token")]
     cli_runs += [data[name] for name in ("train", "sample_uncached", "sample_score",
                                          "ablation", "benchmark")]
+    cli_runs.append(table2["counts"])
     level_chains = [c for c in levels.values() if isinstance(c, dict)]
     level_chains += list(freq_chains.values())
     level_chains += [run for name, line in graphed.items() if name != "train"

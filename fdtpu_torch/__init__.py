@@ -16,8 +16,11 @@ Euler–Maruyama sampler (grouped batches as CUDA graphs), τ₀ calibration, th
 Wasserstein metrics, training (gradient accumulation, checkpoints, exact
 resume, callbacks, optional wandb), config composition and the train and
 sample CLIs (``python -m fdtpu_torch.cli.train`` / ``.sample``, on the card
-unless ``+device=cpu``), and the synthetic datamodule.  What is still to port
-is listed in ROADMAP.md.
+unless ``+device=cpu``), the six datamodules, the cache-study CLIs, the
+Table-2 harness (``python -m fdtpu_torch.cli.validate_real_data``), the
+plots and tables of runs and datasets (``fdtpu_torch.viz``) and the
+reference-checkpoint migration.  What is still to port is listed in
+ROADMAP.md.
 """
 
 __version__ = "0.1.0"

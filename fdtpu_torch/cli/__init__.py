@@ -4,4 +4,6 @@
 ``cli/sample.py``), and the cache studies ``python -m
 fdtpu_torch.cli.ablation_cache`` and ``python -m
 fdtpu_torch.cli.benchmark_cache`` (ports of ``cli/ablation_cache.py`` and
-``cli/benchmark_cache.py``)."""
+``cli/benchmark_cache.py``), and the Table-2 harness ``python -m
+fdtpu_torch.cli.validate_real_data`` (port of
+``scripts/validate_real_data.py``)."""

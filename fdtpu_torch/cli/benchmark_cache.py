@@ -9,9 +9,11 @@ run and sweeps the cache's knobs (R, τ₀, K, the token budget), each arm the
 median of three timed runs after a warm-up, with its sliced Wasserstein
 distance to the uncached samples beside the noise floor of a second
 uncached run; writes ``outputs/cache_benchmark/benchmark_results.csv`` under
-the working directory.  The samplers run at ``batches_per_call=1``, the JAX
-CLI's default: the eager per-step loop.  The figures wait for the port of
-``fdtpu.viz``.  It runs on the CUDA card; ``+device=cpu`` runs it on the CPU.
+the working directory, and its five figure families under ``figures/``
+beside it where matplotlib is installed (a warning where they cannot be
+drawn, as on a machine without matplotlib).  The samplers run at
+``batches_per_call=1``, the JAX CLI's default: the eager per-step loop.  It
+runs on the CUDA card; ``+device=cpu`` runs it on the CPU.
 """
 
 from __future__ import annotations
@@ -34,6 +36,7 @@ from fdtpu_torch.utils.config import CONFIG_DIR, compose_config
 from fdtpu_torch.utils.device import module_device, resolve_device
 from fdtpu_torch.utils.profiling import block_until_ready
 from fdtpu_torch.utils.tables import write_csv
+from fdtpu_torch.viz.benchmark_figures import create_benchmark_figures
 
 OUT_DIR = Path("outputs/cache_benchmark")
 
@@ -180,7 +183,12 @@ def main(argv: Optional[list[str]] = None) -> list[dict[str, Any]]:
     csv_path = OUT_DIR / "benchmark_results.csv"
     write_csv(rows, csv_path)
     logging.info("Wrote %s", csv_path)
-    logging.info("Figures are not written: fdtpu.viz is not ported yet (ROADMAP.md A.10).")
+    try:
+        written = create_benchmark_figures(
+            rows, OUT_DIR, model_id=str(cfg.get("model_id") or model_dir.name))
+        logging.info("Wrote %d figure families to %s", len(written), OUT_DIR / "figures")
+    except Exception as exc:  # drawing is best-effort, as in the JAX CLI
+        logging.warning("Figure generation failed: %s", exc)
     return rows
 
 

@@ -1,6 +1,7 @@
 """Raw-file trees with the real datasets' schemas, written with numpy and the
 ``csv`` module (port of ``fdtpu/data/fixtures.py:33-150``, and of
-``mimic_fixture_frames`` as :class:`~fdtpu_torch.data.hdf_fixed.Table` s).
+``mimic_fixture_frames`` as :class:`~fdtpu_torch.data.hdf_fixed.Table` s,
+and of ``write_mimic_fixture``, which writes them as ``all_hourly_data.h5``).
 
 Each writer draws the JAX package's values from the same seed in the same
 order, and its files parse to the same arrays under both packages'
@@ -16,12 +17,13 @@ from pathlib import Path
 
 import numpy as np
 
-from fdtpu_torch.data.hdf_fixed import Table
+from fdtpu_torch.data.hdf_fixed import Table, write_fixed_frame
 
 __all__ = [
     "mimic_fixture_tables",
     "write_droughts_fixture",
     "write_ecg_fixture",
+    "write_mimic_fixture",
     "write_nasa_fixture",
     "write_nasdaq_fixture",
 ]
@@ -158,3 +160,18 @@ def mimic_fixture_tables(n_features: int = 104, n_subjects: int = 6, hours: int 
     vitals = Table(index=index, columns=columns,
                    column_names=["LEVEL2", "Aggregation Function"], data=list(vals.T))
     return statics, vitals
+
+
+def write_mimic_fixture(root: Path, n_features: int = 104, n_subjects: int = 6,
+                        seed: int = 4) -> Path:
+    """``mimiciii/all_hourly_data.h5``: the fixture tables as pandas'
+    fixed-format frames ``patients`` and ``vitals_labs`` (needs h5py, so it
+    runs on a machine that has it, not on the GPU machine)."""
+    d = Path(root) / "mimiciii"
+    d.mkdir(parents=True, exist_ok=True)
+    statics, vitals = mimic_fixture_tables(n_features=n_features, n_subjects=n_subjects,
+                                           seed=seed)
+    path = d / "all_hourly_data.h5"
+    write_fixed_frame(statics, path, "patients", mode="w")
+    write_fixed_frame(vitals, path, "vitals_labs")
+    return d

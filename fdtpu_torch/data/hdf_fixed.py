@@ -1,5 +1,5 @@
-"""Reader for pandas' *fixed-format* HDF5 frames, without pandas (port of
-``fdtpu/data/hdf_fixed.py:41-108``).
+"""Reader and writer for pandas' *fixed-format* HDF5 frames, without pandas
+(port of ``fdtpu/data/hdf_fixed.py``).
 
 MIMIC-Extract ships ``all_hourly_data.h5`` as frames that ``DataFrame.to_hdf``
 wrote in pandas' default fixed format.  This reads that layout with ``h5py``
@@ -16,8 +16,11 @@ labels, and one array per column.  The layout, per frame at group ``/<key>``:
   ``transposed=True``;
 * strings are fixed-width UTF-8 ``S`` bytes.
 
-``h5py`` is imported when a file is read: a machine without it (the GPU
-machine has none) prepares MIMIC's ``.npy`` tensors on another machine.
+``h5py`` is imported when a file is read or written: a machine without it
+(the GPU machine has none) prepares MIMIC's ``.npy`` tensors on another
+machine.  :func:`write_fixed_frame` writes a :class:`Table` in that layout
+(a MultiIndex axis's levels sorted, as pandas builds them), which both
+packages' readers read as they read pandas' own files.
 """
 
 from __future__ import annotations
@@ -29,7 +32,7 @@ from typing import Any, Hashable
 
 import numpy as np
 
-__all__ = ["Table", "read_fixed_frame"]
+__all__ = ["Table", "read_fixed_frame", "write_fixed_frame"]
 
 
 @dataclasses.dataclass
@@ -97,19 +100,22 @@ def _labels(levels: list[np.ndarray]) -> list[Hashable]:
     return list(zip(*(level.tolist() for level in levels)))
 
 
-def read_fixed_frame(path: Path | str, key: str) -> Table:
-    """Read the fixed-format frame at ``path`` group ``key``."""
+def _h5py(path: Path | str):
     try:
         import h5py
     except ImportError as exc:
         raise RuntimeError(
-            f"Reading {path} needs h5py, which is not installed here. Run the MIMIC "
+            f"Reading or writing {path} needs h5py, which is not installed here. Run the MIMIC "
             "preprocessing (fdtpu_torch.data.preprocessing.mimic_preprocess) on a machine "
             "that has h5py and copy its X_train.npy and X_test.npy into the dataset "
             "directory."
         ) from exc
+    return h5py
 
-    with h5py.File(path, "r") as f:
+
+def read_fixed_frame(path: Path | str, key: str) -> Table:
+    """Read the fixed-format frame at ``path`` group ``key``."""
+    with _h5py(path).File(path, "r") as f:
         group = f[key]
         pandas_type = _dec(group.attrs.get("pandas_type", b""))
         if pandas_type != "frame":
@@ -131,3 +137,66 @@ def read_fixed_frame(path: Path | str, key: str) -> Table:
              for i, (name, level) in enumerate(zip(index_names, index_levels))}
     return Table(index=index, columns=columns, column_names=column_names,
                  data=[by_label[label] for label in columns])
+
+
+def _encode(values: np.ndarray) -> np.ndarray:
+    if values.dtype.kind in "OU":
+        return np.char.encode(values.astype(str), "utf-8")
+    return values
+
+
+def _kind(values: np.ndarray) -> np.bytes_:
+    return np.bytes_("string" if values.dtype.kind in "OSU" else "integer")
+
+
+def _write_axis(group: Any, key: str, levels: list[np.ndarray], names: list[Any],
+                rows: Any = slice(None)) -> None:
+    """An axis of one array a level (per position) and its level names; a
+    MultiIndex (several levels) stores each level's sorted values and the
+    codes of the positions ``rows`` selects."""
+    if len(levels) > 1:
+        group.attrs[f"{key}_variety"] = np.bytes_("multi")
+        group.attrs[f"{key}_nlevels"] = len(levels)
+        for i, (level, name) in enumerate(zip(levels, names)):
+            values, codes = np.unique(level, return_inverse=True)
+            ds = group.create_dataset(f"{key}_level{i}", data=_encode(values))
+            ds.attrs["kind"] = _kind(values)
+            if name is not None:
+                ds.attrs["name"] = np.bytes_(str(name))
+            group.create_dataset(f"{key}_label{i}", data=codes.reshape(-1)[rows])
+        return
+    group.attrs[f"{key}_variety"] = np.bytes_("regular")
+    values = levels[0][rows]
+    ds = group.create_dataset(key, data=_encode(values))
+    ds.attrs["kind"] = _kind(values)
+    if names[0] is not None:
+        ds.attrs["name"] = np.bytes_(str(names[0]))
+
+
+def write_fixed_frame(table: Table, path: Path | str, key: str, mode: str = "a") -> None:
+    """Write ``table`` to ``path`` group ``key`` in pandas' fixed format:
+    one block a dtype, in the order the columns first show it."""
+    h5py = _h5py(path)
+    tuples = bool(table.columns) and isinstance(table.columns[0], tuple)
+    labels = ([np.array([c[i] for c in table.columns]) for i in range(len(table.columns[0]))]
+              if tuples else [np.array(table.columns)])
+    with h5py.File(path, mode) as f:
+        if key in f:
+            del f[key]
+        group = f.create_group(key)
+        for name, value in (("pandas_type", "frame"), ("pandas_version", "0.15.2"),
+                            ("encoding", "UTF-8"), ("errors", "strict")):
+            group.attrs[name] = np.bytes_(value)
+        group.attrs["ndim"] = 2
+        _write_axis(group, "axis0", labels, table.column_names)
+        _write_axis(group, "axis1", [np.asarray(v) for v in table.index.values()],
+                    list(table.index))
+        by_dtype: dict[np.dtype, list[int]] = {}
+        for pos, values in enumerate(table.data):
+            by_dtype.setdefault(np.asarray(values).dtype, []).append(pos)
+        group.attrs["nblocks"] = len(by_dtype)
+        for i, (dtype, locs) in enumerate(by_dtype.items()):
+            _write_axis(group, f"block{i}_items", labels, table.column_names, np.array(locs))
+            values = np.stack([np.asarray(table.data[j], dtype) for j in locs])
+            group.create_dataset(f"block{i}_values", data=_encode(values)).attrs[
+                "transposed"] = True

@@ -805,3 +805,36 @@ def test_resident_epochs_resume_on_the_card(cuda, tmp_path):
     assert t_part.best_val_loss == t_full.best_val_loss
     for a, b in zip(m_full.network.state_dict().values(), m_part.network.state_dict().values()):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("name", ["score", "token"])
+def test_profiled_back_to_back_resident_calls(cuda, name):
+    """The flagship's resident chain (``batches_per_call=2``, 256 samples in
+    batches of 128, 50 steps: a call is two trajectories) profiled by
+    torch.profiler (CUPTI) over two calls back to back, in three windows:
+    the window in which an illegal memory access once stopped a run.  Every
+    profiled call's samples equal the unprofiled call's bitwise."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from fdtpu_torch.diffusion import VPScheduler
+    from fdtpu_torch.models import ScoreModel, ScoreModelConfig, init_score_model
+
+    cfg = ScoreModelConfig(n_channels=1, max_len=187, attention_impl="blockdiag")
+    net = init_score_model(cfg, torch.Generator().manual_seed(0), "cuda")
+    model = ScoreModel(config=cfg, network=net, scheduler=VPScheduler(
+        fourier_noise_scaling=True).with_noise_scaling(187, "cuda"))
+    sampler = DiffusionSampler(model, 128, use_cache=True, cache_kwargs=FLAGSHIP_CHAINS[name][0],
+                               batches_per_call=2)
+
+    def call():
+        return sampler.sample(256, 50, generator=torch.Generator("cuda").manual_seed(3))
+
+    want = call()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            got = [call(), call()]
+            torch.cuda.synchronize()
+        assert any(e.key == "cudaGraphLaunch" for e in prof.key_averages())
+        for x in got:
+            assert torch.equal(x, want)
