@@ -4,6 +4,10 @@
 Usage, from the repository root, on a machine with one CUDA card and nvcc:
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --step-times   # only the eager and resident ms/step
+                                         # of the uncached and score chains
+    python3 chip_smoke.py --export-window   # only the exported token program's
+                                            # profile beside the eager loop's
 
 Phases (any failure exits non-zero and prints no result):
 
@@ -81,6 +85,13 @@ Phases (any failure exits non-zero and prints no result):
    ``epochs_per_call`` 2 (the device-resident epoch loop, a captured graph
    a call) over 2 × 2 epochs.  Phase 5's ``Trainer.fit`` runs at the
    default ``steps_per_call`` (16).
+   Export (after the graphs): the uncached, score-level and token-level
+   chains (``EXPORT_CHAINS``) at the flagship's full width, T = 1000, a
+   batch of 128, exported with ``fdtpu_torch.serve.export_sampler``, loaded
+   with ``load_exported`` and run from a generator, then held to
+   ``DiffusionSampler.sample``'s first batch from the same generator
+   ("export <chain>" lines: export, load, run seconds, ms/step, the
+   artifact's bytes, B1 and B4 launched inside the program, the difference).
 9. CLIs: ``python -m fdtpu_torch.cli.train``'s ``main`` on the synthetic
    data (2000 samples of 187, 2 epochs, ``configs/train.yaml`` and the
    default score model at its full width, ``attention_impl: auto`` resolving
@@ -192,6 +203,13 @@ GRAPH_CHAINS = {
 # FreqCa/FreSca chains run there at SHORT_CHAIN_STEPS (their T = 1000 eager
 # and resident times are PR 9's, PERF.md §5).
 REFERENCE_CHAINS = ("uncached", "score", "token")
+# The chains the export phase exports at NUM_STEPS, and those whose step
+# times ``--step-times`` reads.
+EXPORT_CHAINS = ("uncached", "score", "token")
+STEP_TIME_CHAINS = ("uncached", "score")
+# The exported program against the sampler on the same card: the same
+# functions on the same draws, so any difference past this is a fault.
+EXPORT_REL_TOL = 1e-5
 # The graphs phase's profiled window: one call of two trajectories of this many steps.
 WINDOW_STEPS = 50
 # configs/sampler/default.yaml's batches_per_call, at which the evaluation runs.
@@ -961,7 +979,7 @@ def freq_options_phase(torch, bda, mha) -> dict:
     return chains
 
 
-def graphs_phase(torch, bda, mha) -> dict:
+def graphs_phase(torch, bda, mha) -> tuple[dict, dict]:
     """Each flagship chain with ``batches_per_call`` 1 (the eager loop, a
     device read a step) and 2 (the resident chain: a trajectory one replay
     of a graph whose conditional nodes take the decisions), 256 samples in
@@ -976,17 +994,14 @@ def graphs_phase(torch, bda, mha) -> dict:
     every kernel); then two resident trajectories alone under
     ``set_sync_debug_mode("error")`` (no read of the device) with their
     device span over their wall time.  The uncached and score-level samples
-    are taken back to the time domain.  Then training."""
+    are taken back to the time domain.  Then training.  Returns the lines and,
+    for ``EXPORT_CHAINS``, the eager loop's first batch and its modes."""
     from fdtpu_torch.data import SyntheticDatamodule
-    from fdtpu_torch.diffusion import VPScheduler
-    from fdtpu_torch.models import ScoreModel, ScoreModelConfig, init_score_model
     from fdtpu_torch.ops import idft
-    from fdtpu_torch.sampling import DiffusionSampler, resident
+    from fdtpu_torch.sampling import DiffusionSampler
 
-    cfg = ScoreModelConfig(n_channels=1, max_len=FLAGSHIP["seq"], attention_impl="blockdiag")
-    net = init_score_model(cfg, torch.Generator().manual_seed(0))
-    scheduler = VPScheduler(fourier_noise_scaling=True).with_noise_scaling(cfg.max_len, "cuda")
-    model = ScoreModel(config=cfg, network=net, scheduler=scheduler)
+    model = flagship_model(torch)
+    cfg = model.config
     print(f"graphs: flagship {model.param_count()} parameters", flush=True)
     with tempfile.TemporaryDirectory() as tmp:
         dm = SyntheticDatamodule(tmp, max_len=cfg.max_len, num_samples=1000,
@@ -995,7 +1010,7 @@ def graphs_phase(torch, bda, mha) -> dict:
         dm.setup()
         mean, std = dm.feature_mean_and_std
     layers = cfg.num_layers
-    results = {}
+    results, first_batches = {}, {}
     for name, (kwargs, options) in GRAPH_CHAINS.items():
         level = kwargs["level"] if kwargs else None
         num_steps = NUM_STEPS if name in REFERENCE_CHAINS else SHORT_CHAIN_STEPS
@@ -1010,25 +1025,7 @@ def graphs_phase(torch, bda, mha) -> dict:
             sampler = make()
             torch.cuda.synchronize()
             bda.launches = mha.launches = 0
-            captures = []
-            real_capture = resident.Chain._capture
-
-            def timed_capture(self):
-                torch.cuda.synchronize()
-                t1 = time.perf_counter()
-                real_capture(self)
-                torch.cuda.synchronize()
-                captures.append(time.perf_counter() - t1)
-
-            resident.Chain._capture = timed_capture
-            try:
-                t0 = time.perf_counter()
-                samples = sampler.sample(NUM_SAMPLES, num_steps,
-                                         generator=torch.Generator(device="cuda").manual_seed(2))
-                torch.cuda.synchronize()
-                first_call = time.perf_counter() - t0
-            finally:
-                resident.Chain._capture = real_capture
+            samples, first_call, captures = timed_sample(torch, sampler, num_steps)
             # The resident chain's first call captures its graph: its steps
             # are timed without the capture.
             seconds = first_call - sum(captures)
@@ -1107,8 +1104,169 @@ def graphs_phase(torch, bda, mha) -> dict:
         check(st1 == st2, f"graphs {name}: cache statistics differ: {st1} vs {st2}")
         check(line["bitwise_equal"], f"graphs {name}: samples differ by {line['max_abs_diff']:.3g}")
         results[name] = line
+        if name in EXPORT_CHAINS:  # the export phase's reference: the eager first batch
+            first_batches[name] = (s1[:SAMPLE_BATCH], None if m1 is None else m1[0])
     results["train"] = graphs_train(torch, bda)
+    return results, first_batches
+
+
+def timed_sample(torch, sampler, num_steps: int) -> tuple:
+    """``sampler.sample(NUM_SAMPLES, num_steps)`` from a seeded generator:
+    the samples, the call's wall seconds and the seconds of each graph
+    capture inside it (a resident chain captures at its first call)."""
+    from fdtpu_torch.sampling import resident
+
+    captures = []
+    real_capture = resident.Chain._capture
+
+    def timed_capture(self):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        real_capture(self)
+        torch.cuda.synchronize()
+        captures.append(time.perf_counter() - t1)
+
+    resident.Chain._capture = timed_capture
+    try:
+        t0 = time.perf_counter()
+        samples = sampler.sample(NUM_SAMPLES, num_steps,
+                                 generator=torch.Generator(device="cuda").manual_seed(2))
+        torch.cuda.synchronize()
+        return samples, time.perf_counter() - t0, captures
+    finally:
+        resident.Chain._capture = real_capture
+
+
+def flagship_model(torch):
+    """The flagship score model at full width (random weights, seed 0) on
+    the card, with VP and Fourier noise scaling."""
+    from fdtpu_torch.diffusion import VPScheduler
+    from fdtpu_torch.models import ScoreModel, ScoreModelConfig, init_score_model
+
+    cfg = ScoreModelConfig(n_channels=1, max_len=FLAGSHIP["seq"], attention_impl="blockdiag")
+    net = init_score_model(cfg, torch.Generator().manual_seed(0))
+    scheduler = VPScheduler(fourier_noise_scaling=True).with_noise_scaling(cfg.max_len, "cuda")
+    return ScoreModel(config=cfg, network=net, scheduler=scheduler)
+
+
+def step_times(torch) -> dict:
+    """The eager loop's (``batches_per_call=1``) and the resident chain's
+    (2) ms/step of ``STEP_TIME_CHAINS`` at the flagship, T = 1000, 256
+    samples in batches of 128 (the resident chain without its capture): the
+    steps that the kernels' dispatch lengthens.  ``python3 chip_smoke.py
+    --step-times`` runs only this, so that one call can time the parent's
+    tree and this one in turns."""
+    from fdtpu_torch.sampling import DiffusionSampler
+
+    model = flagship_model(torch)
+    steps = NUM_STEPS * (NUM_SAMPLES // SAMPLE_BATCH)
+    out = {}
+    for name in STEP_TIME_CHAINS:
+        kwargs, options = GRAPH_CHAINS[name]
+        for per_call in (1, 2):
+            sampler = DiffusionSampler(model, SAMPLE_BATCH, use_cache=kwargs is not None,
+                                       cache_kwargs=kwargs, batches_per_call=per_call, **options)
+            if per_call == 1:  # kernels and library handles made before the timed call
+                sampler.sample(SAMPLE_BATCH, 5, generator=torch.Generator("cuda").manual_seed(1))
+            _, seconds, captures = timed_sample(torch, sampler, NUM_STEPS)
+            out[f"{name} {'eager' if per_call == 1 else 'resident'}"] = (
+                1e3 * (seconds - sum(captures)) / steps)
+    print("step_times", json.dumps(out), flush=True)
+    return out
+
+
+def export_phase(torch, bda, mha, first_batches: dict) -> dict:
+    """Each of ``EXPORT_CHAINS`` at the flagship's full width, T = 1000, a
+    batch of 128, through the serving entry points: exported with
+    ``fdtpu_torch.serve.export_sampler``, loaded with ``load_exported`` and
+    run once from the generator the graphs phase sampled from.  "export
+    <chain>" lines: export, load and run seconds, the program's ms/step, the
+    artifact's bytes, B1 and B4 launches in the program's run, and the
+    largest difference from ``DiffusionSampler.sample``'s first batch from
+    that generator (``first_batches``: the graphs phase's eager loop, its
+    samples and modes); B1 must be 10 × that batch's full forwards and B4
+    10 × its TOPK steps (the same decisions)."""
+    from fdtpu_torch.sampling import DiffusionSampler
+    from fdtpu_torch.serve import export_sampler, load_exported
+
+    model = flagship_model(torch)
+    layers = model.config.num_layers
+    results = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name in EXPORT_CHAINS:
+            kwargs, options = GRAPH_CHAINS[name]
+            want, modes = first_batches[name]
+            sampler = DiffusionSampler(model, SAMPLE_BATCH, use_cache=kwargs is not None,
+                                       cache_kwargs=kwargs, **options)
+            path = Path(tmp) / f"{name}.pt2"
+            t0 = time.perf_counter()
+            meta = export_sampler(sampler, NUM_STEPS, path)
+            export_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            fn = load_exported(path)
+            load_s = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            bda.launches = mha.launches = 0
+            t0 = time.perf_counter()
+            got = fn(torch.Generator("cuda").manual_seed(2))
+            torch.cuda.synchronize()
+            run_s = time.perf_counter() - t0
+            b1, b4 = bda.launches, mha.launches
+            # Score level: 1 a refresh; token level: 0 FULL, 1 TOPK.
+            full = NUM_STEPS if modes is None else int((modes == int(name == "score")).sum())
+            topk = int((modes == 1).sum()) if name == "token" else 0
+            line = dict(export_s=export_s, artifact_bytes=path.stat().st_size, load_s=load_s,
+                        run_s=run_s, ms_per_step=1e3 * run_s / NUM_STEPS,
+                        launches_b1=b1, launches_b4=b4, full_forwards=full, topk_steps=topk,
+                        max_abs_diff=float((got - want).abs().max()),
+                        rel_err=rel_err(got, want), bitwise_equal=bool(torch.equal(got, want)),
+                        draws=[d["name"] for d in meta["draws"]])
+            print(f"export {name}", json.dumps(line), flush=True)
+            check(tuple(got.shape) == (SAMPLE_BATCH, model.config.max_len, 1),
+                  f"export {name}: samples shape {tuple(got.shape)}")
+            check(bool(torch.isfinite(got).all()), f"export {name}: samples not finite")
+            check(b1 == layers * full and b4 == layers * topk,
+                  f"export {name}: B1 {b1}, B4 {b4} launches for {full} full forwards and "
+                  f"{topk} TOPK steps of the sampler's chain")
+            check(line["rel_err"] <= EXPORT_REL_TOL,
+                  f"export {name}: samples differ from the sampler's by {line['rel_err']:.3g}")
+            results[name] = line
     return results
+
+
+def export_window(torch) -> dict:
+    """Where the exported program's step goes: the token chain's program
+    (``WINDOW_STEPS`` steps, a batch of 128) and the eager loop from one
+    generator, each profiled once after a warm-up call ("breakdown
+    export-token-*" lines: wall, device busy share, launches, device reads),
+    and the artifact's parts (the graph's JSON against the weights).
+    ``python3 chip_smoke.py --export-window`` runs only this."""
+    import zipfile
+
+    from fdtpu_torch.sampling import DiffusionSampler
+    from fdtpu_torch.serve import export_sampler, load_exported
+
+    kwargs, options = GRAPH_CHAINS["token"]
+    sampler = DiffusionSampler(flagship_model(torch), SAMPLE_BATCH, use_cache=True,
+                               cache_kwargs=kwargs, **options)
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "token.pt2"
+        export_sampler(sampler, WINDOW_STEPS, path)
+        entries = zipfile.ZipFile(path).infolist()
+        out["graph_json_bytes"] = sum(e.file_size for e in entries if e.filename.endswith(".json"))
+        out["weights_bytes"] = sum(e.file_size for e in entries if "/weights/" in e.filename)
+        fn = load_exported(path)
+        for name, run in (("program", fn), ("eager", lambda g: sampler.sample(
+                SAMPLE_BATCH, WINDOW_STEPS, generator=g))):
+            prof = device_breakdown(torch, f"export-token-{name}-{WINDOW_STEPS}-steps",
+                                    lambda: run(torch.Generator("cuda").manual_seed(2)),
+                                    reps=1, top=5)
+            out[name] = dict(wall_ms_per_step=prof["wall_ms"] / WINDOW_STEPS,
+                             busy_share=prof["busy_share"], d2h=prof["d2h"],
+                             launches=prof["api_calls"].get("cudaLaunchKernel", 0))
+    print("export_window", json.dumps(out), flush=True)
+    return out
 
 
 def resident_trajectories(torch, sampler) -> dict:
@@ -2199,6 +2357,13 @@ def main() -> int:
     build.build([bda.SOURCE, bda.SOURCE_BWD, mha.SOURCE, conditional.SOURCE], verbose=True)
     print(f"build: {time.perf_counter() - t0:.1f} s", flush=True)
 
+    if sys.argv[1:] == ["--step-times"]:
+        step_times(torch)
+        return 0
+    if sys.argv[1:] == ["--export-window"]:
+        export_window(torch)
+        return 0
+
     def timed(name, fn, *args):
         t0 = time.perf_counter()
         out = fn(*args)
@@ -2213,7 +2378,8 @@ def main() -> int:
     timed("slice", slice_phase, torch, bda)
     levels = timed("levels", levels_phase, torch, bda, mha)
     freq_chains = timed("freq", freq_options_phase, torch, bda, mha)
-    graphed = timed("graphs", graphs_phase, torch, bda, mha)
+    graphed, first_batches = timed("graphs", graphs_phase, torch, bda, mha)
+    exported = timed("export", export_phase, torch, bda, mha, first_batches)
     train, trained, dm = timed("train", train_phase, torch, bda)
     evaluation = timed("eval", eval_phase, torch, bda, trained, dm)
     cli = timed("cli", cli_phase, torch, bda, mha)
@@ -2228,6 +2394,7 @@ def main() -> int:
     level_chains += list(freq_chains.values())
     level_chains += [run for name, line in graphed.items() if name != "train"
                      for run in (line["eager"], line["resident"])]
+    level_chains += list(exported.values())
 
     def kernel_record(name, source, replaces, launches, results):
         # The head case is the first float32 one; "cases" keeps every case's times.

@@ -22,9 +22,14 @@ The kernel takes head_dim 1..32, any Tq and Tk up to ``MAX_SEQ``: float32
 runs B1's one-pass design over keys streamed through shared memory, bfloat16
 tensor-core tiles (two passes past 256 keys), so shared memory caps neither.
 
-A CPU tensor goes to :func:`mha_plain`; a CUDA tensor launches the kernel or
-raises — there is no fallback.  ``launches`` counts kernel launches.  The
-kernel records no gradient: it serves the sampling chains only.
+The contract is a registered operator, ``torch.ops.fdtpu.fused_mha``
+(``torch.library``): its CPU implementation is :func:`mha_plain`, its CUDA one
+launches the kernel or raises — there is no fallback — and a fake
+implementation gives shapes and dtypes, so that ``torch.export`` traces the
+cached forwards through it (:mod:`fdtpu_torch.serve`).  :func:`fused_mha`
+checks the shapes and calls the operator.  ``launches`` counts kernel
+launches.  The kernel records no gradient: it serves the sampling chains
+only.
 """
 
 from __future__ import annotations
@@ -45,6 +50,8 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 launches = 0
 _lib: Optional[ctypes.CDLL] = None
+# The operator's registration (``torch.library``), kept alive with the module.
+_OPS = torch.library.Library("fdtpu", "FRAGMENT")
 
 
 def mha_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -128,11 +135,24 @@ def fused_mha_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.T
     return out
 
 
+def _fused_mha_cpu(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    # The plain version, laid out as the kernel writes its output.
+    return mha_plain(q, k, v).contiguous()
+
+
+_OPS.define("fused_mha(Tensor q, Tensor k, Tensor v) -> Tensor")
+_OPS.impl("fused_mha", _fused_mha_cpu, "CPU")
+_OPS.impl("fused_mha", fused_mha_cuda, "CUDA")
+
+
+@torch.library.register_fake("fdtpu::fused_mha")
+def _fused_mha_fake(q, k, v):
+    return torch.empty_like(q)
+
+
 def fused_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """Fused token-major attention (contract in the module docstring)."""
     _check_shapes(q, k, v)
-    if q.device.type == "cpu":
-        return mha_plain(q, k, v)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"fused_mha runs on cuda or cpu tensors, got {q.device}")
-    return fused_mha_cuda(q, k, v)
+    return torch.ops.fdtpu.fused_mha.default(q, k, v)

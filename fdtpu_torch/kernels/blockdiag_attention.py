@@ -35,11 +35,18 @@ keeps its row statistics (12 bytes a row) in shared memory and uses the
 scratch only where they and its two 16 KB tiles overflow it (past T =
 16,640 at any head_dim).
 
-A CPU tensor goes to the plain version; a CUDA tensor launches the kernel or
-raises — there is no fallback.  ``launches`` and ``launches_bwd`` count
-kernel launches; ``launches_trainable`` counts backward passes of
-:class:`BlockdiagMHA` on the card.  The forward kernel refuses inputs that
-require a gradient: :func:`blockdiag_mha_trainable` is the one way to one.
+Both contracts are registered operators, ``torch.ops.fdtpu.blockdiag_mha``
+and ``torch.ops.fdtpu.blockdiag_mha_bwd`` (``torch.library``): the CPU
+implementation is the plain version, the CUDA one launches the kernel or
+raises — there is no fallback — and a fake implementation gives shapes and
+dtypes, so that ``torch.export`` traces a model through them
+(:mod:`fdtpu_torch.serve`).  The wrappers :func:`blockdiag_mha` and
+:func:`blockdiag_mha_bwd` check the shapes and call the operators; every
+path of the port reaches the kernels through them.  ``launches`` and
+``launches_bwd`` count kernel launches; ``launches_trainable`` counts
+backward passes of :class:`BlockdiagMHA` on the card.  The forward kernel
+refuses inputs that require a gradient: :func:`blockdiag_mha_trainable` is
+the one way to one.
 """
 
 from __future__ import annotations
@@ -62,6 +69,8 @@ launches = 0
 launches_bwd = 0
 launches_trainable = 0
 _libs: dict[str, ctypes.CDLL] = {}
+# The operators' registrations (``torch.library``), kept alive with the module.
+_OPS = torch.library.Library("fdtpu", "FRAGMENT")
 
 
 def blockdiag_mha_plain(
@@ -162,16 +171,24 @@ def blockdiag_mha_cuda(
     return out
 
 
+_OPS.define("blockdiag_mha(Tensor q, Tensor k, Tensor v, bool shift) -> Tensor")
+_OPS.impl("blockdiag_mha", blockdiag_mha_plain, "CPU")
+_OPS.impl("blockdiag_mha", blockdiag_mha_cuda, "CUDA")
+
+
+@torch.library.register_fake("fdtpu::blockdiag_mha")
+def _blockdiag_mha_fake(q, k, v, shift):
+    return torch.empty_like(q)
+
+
 def blockdiag_mha(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, shift: bool = True
 ) -> torch.Tensor:
     """Fused block-diagonal attention (contract in the module docstring)."""
     _check_shapes(q, k, v)
-    if q.device.type == "cpu":
-        return blockdiag_mha_plain(q, k, v, shift)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"blockdiag_mha runs on cuda or cpu tensors, got {q.device}")
-    return blockdiag_mha_cuda(q, k, v, shift)
+    return torch.ops.fdtpu.blockdiag_mha.default(q, k, v, shift)
 
 
 def blockdiag_mha_bwd_plain(
@@ -231,15 +248,24 @@ def blockdiag_mha_bwd(
             f"g must match q: got {tuple(g.shape)} {g.dtype} on {g.device}, "
             f"q is {tuple(q.shape)} {q.dtype} on {q.device}"
         )
-    if q.device.type == "cpu":
-        return blockdiag_mha_bwd_plain(q, k, v, g)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"blockdiag_mha_bwd runs on cuda or cpu tensors, got {q.device}")
-    return blockdiag_mha_bwd_cuda(q, k, v, g)
+    return torch.ops.fdtpu.blockdiag_mha_bwd.default(q, k, v, g)
+
+
+_OPS.define("blockdiag_mha_bwd(Tensor q, Tensor k, Tensor v, Tensor g) -> (Tensor, Tensor, Tensor)")
+_OPS.impl("blockdiag_mha_bwd", blockdiag_mha_bwd_plain, "CPU")
+_OPS.impl("blockdiag_mha_bwd", blockdiag_mha_bwd_cuda, "CUDA")
+
+
+@torch.library.register_fake("fdtpu::blockdiag_mha_bwd")
+def _blockdiag_mha_bwd_fake(q, k, v, g):
+    return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
 
 
 class BlockdiagMHA(torch.autograd.Function):
-    """Forward kernel B1 and backward kernel B2 as one differentiable op.
+    """Forward kernel B1 and backward kernel B2 as one differentiable op
+    (the two registered operators, through their wrappers).
 
     The forward saves only q, k and v; the backward recomputes the weights.
     ``shift`` reaches the forward only (the recomputed softmax is always

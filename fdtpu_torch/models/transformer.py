@@ -31,7 +31,10 @@ layer's K/V store, ``(k, v)`` each ``(B, T, H, Dh)``, and update it in place
   ``(B, H, Dh, T)``, v ``(B, H, T, Dh)``); the MIXED, CACHED and TOPK
   attention through ``fused_mha`` (B4).  ``noshift`` drops B1's max
   subtraction; it was measured non-finite on full sampling chains and is kept
-  for parity only.
+  for parity only.  Both reach the kernels through their registered
+  operators (``fdtpu::blockdiag_mha``, ``fdtpu::fused_mha``), on every path:
+  eager, captured in CUDA graphs, and traced by ``torch.export``
+  (:mod:`fdtpu_torch.serve`, which hands the in-place store updates copies).
 """
 
 from __future__ import annotations

@@ -1,7 +1,9 @@
 """Card-only tests of the port's CUDA kernels (forward B1, backward B2,
 token-major attention B4) and of the autograd Function over B1 and B2 (B3),
 held against their plain PyTorch versions on the card, and of a token-level
-and a KV-level chain through them.  They skip without a CUDA device.
+and a KV-level chain through them; the kernels' registered operators under
+``torch.library.opcheck``, and the exported sampling program at the
+flagship's width against the sampler.  They skip without a CUDA device.
 
 This file imports only torch and the port, so it also runs where JAX is not
 installed:
@@ -838,3 +840,63 @@ def test_profiled_back_to_back_resident_calls(cuda, name):
         assert any(e.key == "cudaGraphLaunch" for e in prof.key_averages())
         for x in got:
             assert torch.equal(x, want)
+
+
+# ------------------------------------------------------------- export
+@pytest.mark.parametrize("op", ["blockdiag_mha", "blockdiag_mha_bwd", "fused_mha"])
+def test_registered_operators_pass_opcheck_on_the_card(cuda, op):
+    """Each ``fdtpu::`` operator on CUDA tensors at the flagship's head
+    layout (B4 at the token level's TOPK shape, 24 rows against 187 keys):
+    its CUDA implementation launches the kernel and agrees with the fake
+    one."""
+    q, k, v = _inputs(cuda, 8, 187, 12, 6)
+    args = {
+        "blockdiag_mha": (q, k, v, True),
+        "blockdiag_mha_bwd": (q, k, v, torch.randn(q.shape, generator=cuda, device="cuda")),
+        "fused_mha": (q.reshape(8, 187, 12, 6)[:, :24].contiguous(),
+                      k.permute(0, 3, 1, 2).contiguous(), v.permute(0, 2, 1, 3).contiguous()),
+    }[op]
+    counter = {"blockdiag_mha": (bda, "launches"), "blockdiag_mha_bwd": (bda, "launches_bwd"),
+               "fused_mha": (mha, "launches")}[op]
+    before = getattr(*counter)
+    torch.library.opcheck(getattr(torch.ops.fdtpu, op).default, args)
+    torch.cuda.synchronize()
+    assert getattr(*counter) > before
+
+
+@pytest.mark.parametrize("name", ["uncached", "score", "token"])
+def test_exported_flagship_program_equals_the_sampler(cuda, tmp_path, name):
+    """The flagship's program (d_model 72, 10 layers, 12 heads, 187 tokens;
+    a batch of 128, 50 steps) exported, reloaded and run from a generator:
+    bitwise the eager loop's first batch and the resident chain's from the
+    same generator, with B1 launched 10 times a full forward and B4 10 times
+    a TOPK step of the sampler's chain."""
+    from fdtpu_torch.diffusion import VPScheduler
+    from fdtpu_torch.models import ScoreModel, ScoreModelConfig, init_score_model
+    from fdtpu_torch.serve import export_sampler, load_exported
+
+    cfg = ScoreModelConfig(n_channels=1, max_len=187, attention_impl="blockdiag")
+    net = init_score_model(cfg, torch.Generator().manual_seed(0), "cuda")
+    model = ScoreModel(config=cfg, network=net, scheduler=VPScheduler(
+        fourier_noise_scaling=True).with_noise_scaling(187, "cuda"))
+    kw, options = FLAGSHIP_CHAINS[name]
+
+    def sampler(per_call):
+        return DiffusionSampler(model, 128, use_cache=kw is not None, cache_kwargs=kw,
+                                batches_per_call=per_call, **options)
+
+    eager = sampler(1)
+    meta = export_sampler(eager, 50, tmp_path / "p.pt2")
+    assert meta["platforms"] == ["cuda"]
+    fn = load_exported(tmp_path / "p.pt2")
+    bda.launches = mha.launches = 0
+    got = fn(torch.Generator("cuda").manual_seed(3))
+    torch.cuda.synchronize()
+    launched = (bda.launches, mha.launches)
+    want = eager.sample(128, 50, generator=torch.Generator("cuda").manual_seed(3))
+    stats = eager.get_cache_stats()
+    resident = sampler(2).sample(256, 50, generator=torch.Generator("cuda").manual_seed(3))
+    assert torch.equal(got, want), f"max diff {float((got - want).abs().max()):.3g}"
+    assert torch.equal(got, resident[:128])
+    full = stats["full_steps"] if kw else 50
+    assert launched == (10 * full, 10 * stats["mixed_steps"] if name == "token" else 0)
