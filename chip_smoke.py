@@ -8,6 +8,7 @@ Usage, from the repository root, on a machine with one CUDA card and nvcc:
                                          # of the uncached and score chains
     python3 chip_smoke.py --export-window   # only the exported token program's
                                             # profile beside the eager loop's
+    python3 chip_smoke.py --dist-tp   # only the dp 1 × tp 2 run ("dist tp")
 
 Phases (any failure exits non-zero and prints no result):
 
@@ -91,7 +92,22 @@ Phases (any failure exits non-zero and prints no result):
    with ``load_exported`` and run from a generator, then held to
    ``DiffusionSampler.sample``'s first batch from the same generator
    ("export <chain>" lines: export, load, run seconds, ms/step, the
-   artifact's bytes, B1 and B4 launched inside the program, the difference).
+   artifact's bytes, B1 and B4 launched inside the program, the difference);
+   then FreqCa's two programs (``EXPORT_FREQCA_CHAINS``: the score level's
+   predictor, the KV event level's ring) at T = 200, bitwise against the
+   sampler, B1 and B4 inside them.
+   Dist (after the export): ``fdtpu_torch.dist``'s mesh over a one-process
+   NCCL world (the machine has one card): the uncached, score and KV-event
+   chains (T = 200, 256 samples in batches of 128) with ``mesh=`` eager and
+   resident, bitwise against the sampler without a mesh ("dist <chain>":
+   ms/step and samples/s of both, B1 and B4 in the mesh runs); the
+   flagship's ``Trainer(mesh=)`` 2 epochs at ``steps_per_call`` 16 and
+   ``epochs_per_call`` 2, parameters bitwise the unmeshed run's ("dist
+   train"); then dp 1 × tp 2 as two processes on the card over gloo, one
+   epoch against the unmeshed epoch ("dist tp": best val loss, the
+   parameters' relative L2 distance, the elements past rtol 1e-4 / atol
+   1e-5 with the unmeshed run's gradient there).  No number is a scaling
+   result.
 9. CLIs: ``python -m fdtpu_torch.cli.train``'s ``main`` on the synthetic
    data (2000 samples of 187, 2 epochs, ``configs/train.yaml`` and the
    default score model at its full width, ``attention_impl: auto`` resolving
@@ -117,8 +133,9 @@ Phases (any failure exits non-zero and prints no result):
    CLI (``subsample_localization``, full width, B1–B3 counted); the sample
    CLI on that run at ``configs/sample.yaml``'s defaults, uncached and at the
    score level; then ``fdtpu_torch.cli.ablation_cache`` and
-   ``benchmark_cache`` on it at those defaults from a temporary working
-   directory (every arm's row, finite values, cache statistics counting the
+   ``benchmark_cache`` on it at ``CACHE_CLI_STEPS`` (25) steps a chain, a
+   quarter of the defaults' depth (the script's time limit), from a
+   temporary working directory (every arm's row, finite values, cache statistics counting the
    steps run; wall time, B1 and B4 launches).  ``benchmark_cache`` runs its
    headline arms (``run_ablations=false``): with its 19 sweep arms the phase
    took 241 s on the H100, past its 200 s share of the script (PERF.md §5).
@@ -206,6 +223,15 @@ REFERENCE_CHAINS = ("uncached", "score", "token")
 # The chains the export phase exports at NUM_STEPS, and those whose step
 # times ``--step-times`` reads.
 EXPORT_CHAINS = ("uncached", "score", "token")
+# FreqCa's programs (score-level predictor, KV ring), at T = SHORT_CHAIN_STEPS.
+EXPORT_FREQCA_CHAINS = ("score-freqca", "kv-event-freqca")
+# The mesh's chains at T = SHORT_CHAIN_STEPS, 256 samples, batches of 128.
+DIST_CHAINS = ("uncached", "score", "kv-event")
+# The two-process tensor-parallel run on the one card (gloo): train samples,
+# one epoch at the training batch.
+DIST_TP_SAMPLES = 512
+# The cache-study CLIs' chains (configs/sample.yaml has 100 steps).
+CACHE_CLI_STEPS = 25
 STEP_TIME_CHAINS = ("uncached", "score")
 # The exported program against the sampler on the same card: the same
 # functions on the same draws, so any difference past this is a fault.
@@ -1231,7 +1257,366 @@ def export_phase(torch, bda, mha, first_batches: dict) -> dict:
             check(line["rel_err"] <= EXPORT_REL_TOL,
                   f"export {name}: samples differ from the sampler's by {line['rel_err']:.3g}")
             results[name] = line
+        for name in EXPORT_FREQCA_CHAINS:
+            results[name] = export_freqca(torch, bda, mha, model, name, Path(tmp))
     return results
+
+
+def export_freqca(torch, bda, mha, model, name: str, tmp: Path) -> dict:
+    """One of ``EXPORT_FREQCA_CHAINS`` (the freq phase's settings) at the
+    flagship's full width, T = ``SHORT_CHAIN_STEPS``, a batch of 128:
+    exported, loaded and run twice from a generator, held bitwise to
+    ``DiffusionSampler.sample``'s batch from the same generator ("export
+    <chain>" line: export, load, first and second run seconds, the second's
+    ms/step against the sampler's (warmed up), bytes, B1 and B4 launched inside the program, FreqCa's ring
+    length and the score level's skips).  The score level's Hermite fit runs
+    through ``fdtpu::hermite_solve``, cuSOLVER pinned inside the operator."""
+    from fdtpu_torch.sampling import DiffusionSampler
+    from fdtpu_torch.serve import export_sampler, load_exported
+
+    kwargs, options = FREQ_CHAINS[name]
+    layers = model.config.num_layers
+    steps = SHORT_CHAIN_STEPS
+    sampler = DiffusionSampler(model, SAMPLE_BATCH, use_cache=True, cache_kwargs=kwargs,
+                               **options)
+    sampler.sample(SAMPLE_BATCH, 5, generator=torch.Generator("cuda").manual_seed(1))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = sampler.sample(SAMPLE_BATCH, steps, generator=torch.Generator("cuda").manual_seed(2))
+    torch.cuda.synchronize()
+    sampler_s = time.perf_counter() - t0
+    stats = sampler.get_cache_stats()
+    ring = int(sampler.last_cache_state.hist_len)
+    path = tmp / f"{name}.pt2"
+    t0 = time.perf_counter()
+    export_sampler(sampler, steps, path)
+    export_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    fn = load_exported(path)
+    load_s = time.perf_counter() - t0
+    runs = []
+    for _ in range(2):  # the first run's time includes the program's first call
+        torch.cuda.synchronize()
+        bda.launches = mha.launches = 0
+        t0 = time.perf_counter()
+        got = fn(torch.Generator("cuda").manual_seed(2))
+        torch.cuda.synchronize()
+        runs.append(time.perf_counter() - t0)
+    first_s, run_s = runs
+    b1, b4 = bda.launches, mha.launches
+    b4_steps = stats["mixed_steps"] + stats["cached_steps"] if kwargs["level"] == "kv" else 0
+    line = dict(steps=steps, export_s=export_s, artifact_bytes=path.stat().st_size,
+                load_s=load_s, first_run_s=first_s, run_s=run_s, ms_per_step=1e3 * run_s / steps,
+                sampler_ms_per_step=1e3 * sampler_s / steps, launches_b1=b1, launches_b4=b4,
+                full_steps=stats["full_steps"], b4_steps=b4_steps, ring_entries=ring,
+                skipped_ratio=stats["steps_skipped_ratio"],
+                max_abs_diff=float((got - want).abs().max()),
+                bitwise_equal=bool(torch.equal(got, want)))
+    print(f"export {name}", json.dumps(line), flush=True)
+    check(bool(torch.isfinite(got).all()), f"export {name}: samples not finite")
+    check(b1 == layers * stats["full_steps"] and b4 == layers * b4_steps,
+          f"export {name}: B1 {b1}, B4 {b4} launches for {stats['full_steps']} full and "
+          f"{b4_steps} cached steps of the sampler's chain")
+    check(ring >= 2, f"export {name}: FreqCa's ring holds {ring} entries")
+    check(line["bitwise_equal"], f"export {name}: samples differ from the sampler's by "
+          f"{line['max_abs_diff']:.3g}")
+    return line
+
+
+def dist_phase(torch, bda, mha) -> dict:
+    """``fdtpu_torch.dist`` on the card: a ``("data", "model")`` mesh
+    (``create_mesh``) over a one-process NCCL world.  Each of ``DIST_CHAINS``
+    at the flagship, T = ``SHORT_CHAIN_STEPS``, 256 samples in batches of
+    128: ``DiffusionSampler(mesh=)`` eager and resident (the collectives
+    captured in the trajectory's graph) bitwise against the sampler without a
+    mesh from the same generator, with modes and statistics ("dist <chain>"
+    lines: ms/step and samples/s beside the unmeshed run's, B1 and B4 in the
+    mesh run); ``Trainer(mesh=)`` at ``steps_per_call`` 16 and at
+    ``epochs_per_call`` 2 ("dist train" line); then tensor parallelism,
+    dp 1 × tp 2, as two processes on the one card over gloo ("dist tp"
+    line).  No number here is a scaling result: one rank does all the
+    work."""
+    import torch.distributed as dist
+
+    from fdtpu_torch.dist import create_mesh
+    from fdtpu_torch.sampling import DiffusionSampler
+
+    out = {"launches": dict(b1=0, b2=0, b3=0, b4=0)}
+    with tempfile.TemporaryDirectory() as tmp:
+        # A one-process NCCL world (the machine has one card), through a file
+        # store: every collective of the mesh runs, on one rank.
+        torch.cuda.set_device(0)
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/store", rank=0, world_size=1)
+        try:
+            mesh = create_mesh()
+            # NCCL makes a group's communicator at its first collective: made
+            # here, so that no timed run below pays for it.
+            for axis in ("data", "model"):
+                dist.all_reduce(torch.zeros(1, device="cuda"), group=mesh.get_group(axis))
+            torch.cuda.synchronize()
+            model = flagship_model(torch)
+            for name in DIST_CHAINS:
+                kwargs, options = GRAPH_CHAINS[name]
+                runs = {}
+                for label, per_call, on in (("unmeshed", 1, None), ("eager", 1, mesh),
+                                            ("resident", 2, mesh)):
+                    sampler = DiffusionSampler(model, SAMPLE_BATCH, use_cache=kwargs is not None,
+                                               cache_kwargs=kwargs, batches_per_call=per_call,
+                                               mesh=on, **options)
+                    torch.cuda.synchronize()
+                    bda.launches = mha.launches = 0
+                    samples, seconds, captures = timed_sample(torch, sampler, SHORT_CHAIN_STEPS)
+                    runs[label] = (samples, seconds - sum(captures), sum(captures),
+                                   (bda.launches, mha.launches), sampler.last_modes,
+                                   sampler.get_cache_stats())
+                ref, ref_s, _, _, ref_modes, ref_stats = runs["unmeshed"]
+                steps = SHORT_CHAIN_STEPS * (NUM_SAMPLES // SAMPLE_BATCH)
+                line = dict(unmeshed_ms_per_step=1e3 * ref_s / steps,
+                            unmeshed_samples_per_s=NUM_SAMPLES / ref_s)
+                for label in ("eager", "resident"):
+                    got, secs, capture_s, (b1, b4), modes, stats = runs[label]
+                    same_modes = (modes is None and ref_modes is None) or (
+                        modes is not None and torch.equal(modes, ref_modes))
+                    line[label] = dict(ms_per_step=1e3 * secs / steps,
+                                       samples_per_s=NUM_SAMPLES / secs, capture_s=capture_s,
+                                       launches_b1=b1, launches_b4=b4,
+                                       bitwise_equal=bool(torch.equal(got, ref)),
+                                       max_abs_diff=float((got - ref).abs().max()),
+                                       modes_equal=same_modes, stats_equal=stats == ref_stats)
+                    out["launches"]["b1"] += b1
+                    out["launches"]["b4"] += b4
+                    check(line[label]["bitwise_equal"] and same_modes and stats == ref_stats,
+                          f"dist {name} {label}: the mesh's samples, modes or statistics differ "
+                          f"from the sampler's without a mesh ({line[label]})")
+                    check(b1 > 0, f"dist {name} {label}: no B1 launch")
+                    check(name != "kv-event" or b4 > 0, f"dist {name} {label}: no B4 launch")
+                print(f"dist {name}", json.dumps(line), flush=True)
+                out[name] = line
+            out["train"] = dist_train(torch, bda, mha, mesh, Path(tmp))
+            for k in ("b1", "b2", "b3", "b4"):
+                out["launches"][k] += out["train"]["launches"][k]
+        finally:
+            dist.destroy_process_group()
+        out["tp"] = dist_tp(torch, Path(tmp))
+        for k in ("b1", "b2", "b3"):
+            out["launches"][k] += out["tp"]["launches"][k]
+    return out
+
+
+def dist_train(torch, bda, mha, mesh, tmp: Path) -> dict:
+    """The flagship trained 2 epochs (``TRAIN_SAMPLES``, batch 64) with and
+    without the mesh, at ``steps_per_call`` 16 (the step graphs capture the
+    gradients' all-reduce) and at ``epochs_per_call`` 2 (one graph for both
+    epochs): parameters and losses bitwise the unmeshed run's; samples/s of
+    each (the resident loop's with its capture); B1, B2 and B3 in the mesh
+    runs."""
+    from fdtpu_torch.data import SyntheticDatamodule
+    from fdtpu_torch.models import ScoreModel, init_score_model
+    from fdtpu_torch.train import Trainer, get_training_params
+
+    base = flagship_model(torch)
+    cfg = base.config
+    dm = SyntheticDatamodule(tmp / "data", max_len=cfg.max_len, num_samples=TRAIN_SAMPLES,
+                             batch_size=TRAIN_FLAGSHIP["batch"], fourier_transform=True,
+                             standardize=True)
+    dm.prepare_data()
+    dm.setup()
+    n_steps = get_training_params(dm, TRAIN_EPOCHS)["num_training_steps"]
+    out = {"launches": dict(b1=0, b2=0, b3=0, b4=0)}
+    for loop, kw in (("graphed", dict(steps_per_call=16)), ("resident", dict(epochs_per_call=2))):
+        fits = {}
+        for label, on in (("unmeshed", None), ("mesh", mesh)):
+            model = ScoreModel(config=cfg, network=init_score_model(
+                cfg, torch.Generator().manual_seed(0)), scheduler=base.scheduler,
+                num_training_steps=n_steps)
+            trainer = Trainer(max_epochs=TRAIN_EPOCHS, run_dir=tmp / "runs",
+                              run_id=f"{loop}-{label}", seed=42, mesh=on,
+                              save_resume_state=False, **kw)
+            torch.cuda.synchronize()
+            _reset_counts(torch, bda, mha)
+            t0 = time.perf_counter()
+            trainer.fit(model, dm)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            fits[label] = (model.network.state_dict(), trainer.best_val_loss, seconds,
+                           _cli_counts(bda, mha))
+        (p0, v0, s0, _), (p1, v1, s1, counts) = fits["unmeshed"], fits["mesh"]
+        same = all(torch.equal(p0[k], p1[k]) for k in p0)
+        line = dict(unmeshed_samples_per_s=TRAIN_EPOCHS * TRAIN_SAMPLES / s0,
+                    mesh_samples_per_s=TRAIN_EPOCHS * TRAIN_SAMPLES / s1,
+                    best_val_loss=v1, unmeshed_best_val_loss=v0, params_bitwise_equal=same,
+                    **counts)
+        out[loop] = line
+        for k in out["launches"]:
+            out["launches"][k] += counts[k]
+        check(same and v0 == v1, f"dist train {loop}: the mesh run differs from the "
+              f"unmeshed one (val loss {v1} against {v0})")
+        check(counts["b1"] > 0 and counts["b2"] > 0 and counts["b3"] > 0,
+              f"dist train {loop}: launches {counts}")
+    print("dist train", json.dumps(out), flush=True)
+    return out
+
+
+def dist_tp(torch, tmp: Path) -> dict:
+    """dp 1 × tp 2 on the one card: two processes (``_tp_rank``) on cuda:0
+    over gloo, each holding 6 of the flagship's 12 heads and 1024 of its
+    2048 FFN units, train one epoch (``DIST_TP_SAMPLES``, batch 64, the
+    eager steps: gloo's collectives are not captured) against the same epoch
+    without a mesh here: best val loss at rtol 1e-4, the parameters within a
+    relative L2 distance of 1e-4, B1, B2 and B3 launched on each rank's
+    heads.  A rank that leaves no result fails the phase.  Beside it, per
+    element, the count past rtol 1e-4 / atol 1e-5 and the worst elements
+    with the root mean square of the unmeshed run's gradient there over the
+    epoch's steps, and its leaf's median."""
+    import multiprocessing as mpc
+
+    from fdtpu_torch.data import SyntheticDatamodule
+    from fdtpu_torch.models import ScoreModel, init_score_model
+    from fdtpu_torch.train import Trainer
+    from fdtpu_torch.train import trainer as trainer_mod
+
+    base = flagship_model(torch)
+    cfg = base.config
+    data = tmp / "tp_data"
+    dm = SyntheticDatamodule(data, max_len=cfg.max_len, num_samples=DIST_TP_SAMPLES,
+                             batch_size=TRAIN_FLAGSHIP["batch"], fourier_transform=True,
+                             standardize=True)
+    dm.prepare_data()
+    dm.setup()
+    ctx = mpc.get_context("spawn")
+    procs = [ctx.Process(target=_tp_rank, args=(rank, str(tmp))) for rank in range(2)]
+    t0 = time.perf_counter()
+    for proc in procs:
+        proc.start()
+    for proc in procs:
+        proc.join(timeout=300)
+    hung = [rank for rank, proc in enumerate(procs) if proc.is_alive()]
+    for rank in hung:
+        procs[rank].kill()
+        procs[rank].join()
+    seconds = time.perf_counter() - t0
+    missing = [rank for rank in range(2) if not (tmp / f"tp{rank}.json").exists()]
+    errors = {rank: (tmp / f"tp{rank}.err").read_text()[-1500:] for rank in range(2)
+              if (tmp / f"tp{rank}.err").exists()}
+    check(not missing, f"dist tp: ranks {missing} left no result (ended after 300 s: {hung}; "
+          f"exit codes {[p.exitcode for p in procs]}; errors {errors})")
+    ranks = [json.loads((tmp / f"tp{rank}.json").read_text()) for rank in range(2)]
+    model = ScoreModel(config=cfg, network=init_score_model(cfg, torch.Generator().manual_seed(0)),
+                       scheduler=base.scheduler, num_training_steps=len(dm.train_dataloader()))
+    trainer = Trainer(max_epochs=1, run_dir=tmp / "tp_runs", run_id="unmeshed", seed=42,
+                      steps_per_call=1, save_resume_state=False)
+    # The unmeshed run's gradients, summed in squares over its steps.
+    real_step, squares = trainer_mod._loss_and_update, {}
+
+    def step_and_keep_gradients(network, optimizer, *args, **kwargs):
+        loss = real_step(network, optimizer, *args, **kwargs)
+        names = [n for n, q in network.named_parameters() if q.requires_grad]
+        for name, q in zip(names, optimizer.params):
+            squares[name] = squares.get(name, 0) + q.grad.detach().square()
+        squares["steps"] = squares.get("steps", 0) + 1
+        return loss
+
+    trainer_mod._loss_and_update = step_and_keep_gradients
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.fit(model, dm)
+        torch.cuda.synchronize()
+        unmeshed_s = time.perf_counter() - t0
+    finally:
+        trainer_mod._loss_and_update = real_step
+    state = torch.load(tmp / "tp_state.pt")
+    want = model.network.state_dict()
+    got = {k: state[k].cuda() for k in want}
+    flat_got = torch.cat([got[k].flatten() for k in want])
+    flat_want = torch.cat([w.flatten() for w in want.values()])
+    rel = float((flat_got - flat_want).norm() / flat_want.norm())
+    over = {}
+    for k, w in want.items():
+        ratio = (got[k] - w).abs() / (1e-5 + 1e-4 * w.abs())
+        over[k] = (ratio, int((ratio > 1).sum()))
+    worst = []
+    for k, (ratio, _) in over.items():
+        value, index = ratio.flatten().max(0)
+        worst.append((float(value), k, int(index)))
+    elements = []
+    for value, k, index in sorted(worst, reverse=True)[:5]:
+        rms = (squares[k] / squares["steps"]).sqrt() if k in squares else None
+        elements.append(dict(
+            param=k, index=index, over_tol=value,
+            abs_diff=float((got[k] - want[k]).flatten()[index].abs()),
+            grad_rms=None if rms is None else float(rms.flatten()[index]),
+            leaf_median_grad_rms=None if rms is None else float(rms.flatten().median())))
+    launches = {k: sum(r["launches"][k] for r in ranks) for k in ("b1", "b2", "b3")}
+    line = dict(seconds=seconds, train_s=[r["seconds"] for r in ranks],
+                unmeshed_train_s=unmeshed_s, best_val_loss=ranks[0]["best_val_loss"],
+                unmeshed_best_val_loss=trainer.best_val_loss, params_rel_l2=rel,
+                elements=int(flat_want.numel()),
+                elements_over_tol=sum(n for _, n in over.values()),
+                leaves_over_tol={k: n for k, (_, n) in over.items() if n},
+                worst_elements=elements, launches=launches,
+                local_heads=[r["local_heads"] for r in ranks])
+    print("dist tp", json.dumps(line), flush=True)
+    check(abs(line["best_val_loss"] - trainer.best_val_loss) <= 1e-4 * abs(trainer.best_val_loss),
+          f"dist tp: val loss {line['best_val_loss']} against {trainer.best_val_loss}")
+    check(rel <= 1e-4, f"dist tp: parameters {rel:.3g} (relative L2) from the unmeshed run's")
+    check(all(v > 0 for v in launches.values()), f"dist tp: launches {launches}")
+    return line
+
+
+def _tp_rank(rank: int, tmp: str) -> None:
+    """One rank of :func:`dist_tp` (a spawned process); its error, if any,
+    goes to ``tp<rank>.err`` and its exit code."""
+    import traceback
+
+    tmp = Path(tmp)
+    try:
+        import torch
+        import torch.distributed as dist
+
+        from fdtpu_torch.data import SyntheticDatamodule
+        from fdtpu_torch.dist import MeshConfig, create_mesh
+        from fdtpu_torch.kernels import blockdiag_attention as bda
+        from fdtpu_torch.models import ScoreModel, init_score_model
+        from fdtpu_torch.train import Trainer
+
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        torch.cuda.set_device(0)
+        dist.init_process_group("gloo", init_method=f"file://{tmp / 'tp_store'}", rank=rank,
+                                world_size=2)
+        try:
+            mesh = create_mesh(MeshConfig(model=2))
+            base = flagship_model(torch)
+            cfg = base.config
+            dm = SyntheticDatamodule(tmp / "tp_data", max_len=cfg.max_len,
+                                     num_samples=DIST_TP_SAMPLES,
+                                     batch_size=TRAIN_FLAGSHIP["batch"], fourier_transform=True,
+                                     standardize=True)
+            dm.setup()
+            model = ScoreModel(config=cfg, network=init_score_model(
+                cfg, torch.Generator().manual_seed(0)), scheduler=base.scheduler,
+                num_training_steps=len(dm.train_dataloader()))
+            trainer = Trainer(max_epochs=1, run_dir=tmp / "tp_runs", run_id="tp", seed=42,
+                              mesh=mesh, steps_per_call=1, save_resume_state=False)
+            bda.launches = bda.launches_bwd = bda.launches_trainable = 0
+            t0 = time.perf_counter()
+            trainer.fit(model, dm)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            if rank == 0:
+                torch.save({k: v.cpu() for k, v in model.network.state_dict().items()},
+                           tmp / "tp_state.pt")
+            (tmp / f"tp{rank}.json").write_text(json.dumps(dict(
+                seconds=seconds, best_val_loss=trainer.best_val_loss,
+                local_heads=cfg.n_head // 2,
+                launches=dict(b1=bda.launches, b2=bda.launches_bwd,
+                              b3=bda.launches_trainable))))
+        finally:
+            dist.destroy_process_group()
+    except Exception:
+        (tmp / f"tp{rank}.err").write_text(traceback.format_exc())
+        raise
 
 
 def export_window(torch) -> dict:
@@ -1956,8 +2341,8 @@ def data_phase(torch, bda, mha) -> dict:
     against the CPU; the flagship trained 2 epochs on ECG through the train
     CLI (``subsample_localization``); the sample CLI on that run at
     ``configs/sample.yaml``'s defaults, uncached and at the score level; then
-    ``ablation_cache`` and ``benchmark_cache`` on it at those defaults, from a
-    temporary working directory."""
+    ``ablation_cache`` and ``benchmark_cache`` on it at ``CACHE_CLI_STEPS``
+    steps a chain, from a temporary working directory."""
     import os
 
     import numpy as np
@@ -2055,8 +2440,10 @@ def data_phase(torch, bda, mha) -> dict:
             check(counts["b1"] == layers * full,
                   f"data sample {name}: {counts['b1']} B1 launches for {full} full forwards")
             out[f"sample_{name}"] = line
-        # The cache CLIs' samplers run as many steps a call (the same defaults).
-        default_steps = out["sample_uncached"]["steps"]
+        # The cache CLIs run at CACHE_CLI_STEPS steps a chain (a cut of the
+        # defaults' depth, to keep the script in its time), as many batches.
+        default_steps = (out["sample_uncached"]["steps"] // int(sampled.cfg["num_diffusion_steps"])
+                         * CACHE_CLI_STEPS)
 
         # The cache-study CLIs, from a working directory of their own.
         work = tmp / "work"
@@ -2064,7 +2451,8 @@ def data_phase(torch, bda, mha) -> dict:
         here = Path.cwd()
         os.chdir(work)
         try:
-            args = [f"model_path={runs}", "model_id=latest"]
+            args = [f"model_path={runs}", "model_id=latest",
+                    f"num_diffusion_steps={CACHE_CLI_STEPS}"]
             _reset_counts(torch, bda, mha)
             t0 = time.perf_counter()
             results = ablation_cache.main(args)
@@ -2363,6 +2751,10 @@ def main() -> int:
     if sys.argv[1:] == ["--export-window"]:
         export_window(torch)
         return 0
+    if sys.argv[1:] == ["--dist-tp"]:
+        with tempfile.TemporaryDirectory() as tmp:
+            dist_tp(torch, Path(tmp))
+        return 0
 
     def timed(name, fn, *args):
         t0 = time.perf_counter()
@@ -2380,6 +2772,7 @@ def main() -> int:
     freq_chains = timed("freq", freq_options_phase, torch, bda, mha)
     graphed, first_batches = timed("graphs", graphs_phase, torch, bda, mha)
     exported = timed("export", export_phase, torch, bda, mha, first_batches)
+    meshed = timed("dist", dist_phase, torch, bda, mha)
     train, trained, dm = timed("train", train_phase, torch, bda)
     evaluation = timed("eval", eval_phase, torch, bda, trained, dm)
     cli = timed("cli", cli_phase, torch, bda, mha)
@@ -2417,18 +2810,20 @@ def main() -> int:
                       "fdtpu/kernels/blockdiag_attention.py:221",
                       train["launches"]
                       + sum(c["launches_b1"] for c in level_chains) + evaluation["launches"]
-                      + sum(c["b1"] for c in cli_runs), kernel_results),
+                      + sum(c["b1"] for c in cli_runs) + meshed["launches"]["b1"], kernel_results),
         kernel_record("fused_mha", "fdtpu_torch/kernels/csrc/fused_attention.cu",
                       "fdtpu/kernels/attention.py:80",
-                      sum(c["launches_b4"] for c in level_chains) + sum(c["b4"] for c in cli_runs),
-                      mha_results),
+                      sum(c["launches_b4"] for c in level_chains) + sum(c["b4"] for c in cli_runs)
+                      + meshed["launches"]["b4"], mha_results),
         kernel_record("blockdiag_mha_bwd", "fdtpu_torch/kernels/csrc/blockdiag_attention_bwd.cu",
                       "fdtpu/kernels/blockdiag_attention.py:373",
-                      train["launches_bwd"] + sum(c["b2"] for c in cli_runs), bwd_results),
+                      train["launches_bwd"] + sum(c["b2"] for c in cli_runs)
+                      + meshed["launches"]["b2"], bwd_results),
         {"name": "blockdiag_mha_trainable", "route": "autograd.Function",
          "source": "fdtpu_torch/kernels/blockdiag_attention.py",
          "replaces": "fdtpu/kernels/blockdiag_attention.py:410",
-         "launches": train["launches_trainable"] + sum(c["b3"] for c in cli_runs),
+         "launches": train["launches_trainable"] + sum(c["b3"] for c in cli_runs)
+         + meshed["launches"]["b3"],
          "max_abs_err": trainable["max_abs_err"],
          "ms": trainable["ms"], "plain_ms": trainable["plain_ms"],
          "bound_ms": trainable["bound_ms"], "bound_by": trainable["bound_by"],

@@ -19,9 +19,12 @@ sample CLIs (``python -m fdtpu_torch.cli.train`` / ``.sample``, on the card
 unless ``+device=cpu``), the six datamodules, the cache-study CLIs, the
 Table-2 harness (``python -m fdtpu_torch.cli.validate_real_data``), the
 plots and tables of runs and datasets (``fdtpu_torch.viz``), the
-reference-checkpoint migration, and the export of the sampling program for
-serving (``fdtpu_torch.serve``, ``python -m fdtpu_torch.cli.export_sampler``).
-What is still to port is listed in ROADMAP.md.
+reference-checkpoint migration, the export of the sampling program for
+serving (``fdtpu_torch.serve``, ``python -m fdtpu_torch.cli.export_sampler``),
+and distribution over a device mesh, one process a device
+(``fdtpu_torch.dist``: the sampler's data-parallel batch, the trainer's data
+and tensor parallelism).  What is left out on purpose is listed in
+ROADMAP.md.
 """
 
 __version__ = "0.1.0"

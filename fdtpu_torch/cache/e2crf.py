@@ -43,6 +43,7 @@ from typing import Any, Optional, Union
 
 import torch
 
+from fdtpu_torch.dist.parallel import Group, batch_mean
 from fdtpu_torch.ops.fourier import frequency_decompose_fft, predict_hermite
 
 MODE_FULL = 0
@@ -323,12 +324,14 @@ def event_policy_terms(
     state: CacheState,
     x: torch.Tensor,
     probe_u: Optional[torch.Tensor] = None,
+    group: Group = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """The event policy's token mask (T,) bool and its warning: the mean
-    drift past τ_warn."""
+    drift past τ_warn.  ``x`` may be one rank's rows of the batch: ``group``
+    (:mod:`fdtpu_torch.dist.parallel`) holds the others."""
     max_len = x.shape[1]
     if cfg.energy_weighting:
-        energy = torch.mean(x**2, dim=(0, 2))  # (T,)
+        energy = batch_mean(x**2, (0, 2), group)  # (T,)
         energy_w = energy / (torch.mean(energy) + 1e-8)
     else:
         energy_w = torch.ones((max_len,), dtype=x.dtype, device=x.device)
@@ -359,6 +362,7 @@ def event_policy(
     state: CacheState,
     x: torch.Tensor,
     probe_u: Optional[torch.Tensor] = None,
+    group: Group = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Event-driven KV policy: the tokens whose energy-weighted CRF drift
     exceeds τ₀, ∪ the K lowest-frequency tokens, ∪ a random probe fraction
@@ -366,7 +370,7 @@ def event_policy(
     recomputed (MIXED, or CACHED if none); a full refresh at step 0, every R
     steps, or when the mean drift exceeds τ_warn.  Returns ``(mode, mask,
     number of masked tokens)``."""
-    mask, warn = event_policy_terms(cfg, pp, state, x, probe_u)
+    mask, warn = event_policy_terms(cfg, pp, state, x, probe_u, group)
     mode = event_mode(event_refresh_due(pp, state), warn, mask.sum())
     full = mode == MODE_FULL
     mask = mask | full
@@ -398,13 +402,15 @@ def token_policy_terms(
     pp: PolicyParams,
     state: CacheState,
     x: torch.Tensor,
+    group: Group = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """The token policy's arithmetic: the energy-weighted drift ``w_drift``
     (T,), its mean, the calibration flag (every per-token rate 0) and the
-    skip flag (the predicted accumulated error within the budget)."""
+    skip flag (the predicted accumulated error within the budget); ``group``
+    as in :func:`event_policy_terms`."""
     max_len = x.shape[1]
     if cfg.energy_weighting:
-        energy = torch.mean(x.float() ** 2, dim=tuple(i for i in range(x.ndim) if i != 1))
+        energy = batch_mean(x.float() ** 2, tuple(i for i in range(x.ndim) if i != 1), group)
         energy_w = energy / (torch.mean(energy) + 1e-8)
     else:
         energy_w = torch.ones((max_len,), dtype=torch.float32, device=x.device)
@@ -433,7 +439,7 @@ def token_mode(pp: PolicyParams, state: CacheState, calibration: torch.Tensor,
 
 
 def token_policy(
-    cfg: E2CRFConfig, pp: PolicyParams, state: CacheState, x: torch.Tensor
+    cfg: E2CRFConfig, pp: PolicyParams, state: CacheState, x: torch.Tensor, group: Group = None
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Step mode of the token level: TOKEN_FULL on a cold cache, on the
     calibration step right after a refresh whose per-token rates are all 0,
@@ -442,7 +448,7 @@ def token_policy(
 
     Returns ``(mode, w_drift (T,), mean_drift ())``, float32, with the
     energy-weighted drift ``w_drift``."""
-    w_drift, mean_drift, calibration, skip = token_policy_terms(cfg, pp, state, x)
+    w_drift, mean_drift, calibration, skip = token_policy_terms(cfg, pp, state, x, group)
     return token_mode(pp, state, calibration, skip), w_drift, mean_drift
 
 
@@ -559,22 +565,31 @@ def kv_state_update(
     """The tensors of :func:`update_after_forward`: drift, store, CRF and
     (``ring``) FreqCa's ring."""
     delta = torch.linalg.vector_norm((crf - state.crf_prev).to(state.delta_tok.dtype), dim=-1)
-    freqca = {}
-    if ring:
-        crf_low, crf_high = frequency_decompose_fft(
-            crf.reshape(-1, *crf.shape[-2:]).float(), cfg.low_freq_ratio
-        )
-        hist = state.crf_high_hist
-        freqca = dict(
-            crf_low=crf_low.reshape(crf.shape).to(state.crf_low.dtype),
-            crf_high_hist=torch.cat([hist[1:], crf_high.reshape(1, *crf.shape).to(hist.dtype)]),
-            crf_t_hist=torch.cat(
-                [state.crf_t_hist[1:], timestep.reshape(1).to(state.crf_t_hist.dtype)]
-            ),
-            hist_len=torch.clamp(state.hist_len + 1, max=cfg.max_history),
-        )
+    freqca = kv_ring_entry(cfg, state, crf, timestep) if ring else {}
     return state.replace(
         k=kv_new[0], v=kv_new[1], crf_prev=crf, delta_tok=torch.mean(delta, dim=0), **freqca
+    )
+
+
+RING_FIELDS = ("crf_low", "crf_high_hist", "crf_t_hist", "hist_len")
+
+
+def kv_ring_entry(cfg: E2CRFConfig, state: CacheState, crf: torch.Tensor,
+                  timestep: torch.Tensor) -> dict[str, torch.Tensor]:
+    """FreqCa's ring (:data:`RING_FIELDS`) after adding the CRF's low and
+    high parts at ``timestep``: shifted left, ``hist_len`` capped at
+    ``max_history``."""
+    crf_low, crf_high = frequency_decompose_fft(
+        crf.reshape(-1, *crf.shape[-2:]).float(), cfg.low_freq_ratio
+    )
+    hist = state.crf_high_hist
+    return dict(
+        crf_low=crf_low.reshape(crf.shape).to(state.crf_low.dtype),
+        crf_high_hist=torch.cat([hist[1:], crf_high.reshape(1, *crf.shape).to(hist.dtype)]),
+        crf_t_hist=torch.cat(
+            [state.crf_t_hist[1:], timestep.reshape(1).to(state.crf_t_hist.dtype)]
+        ),
+        hist_len=torch.clamp(state.hist_len + 1, max=cfg.max_history),
     )
 
 
@@ -605,9 +620,12 @@ def stat_tensor(state: CacheState) -> torch.Tensor:
         state.realized_err_max, state.overrun, ref.max(), growth.max())])
 
 
-def cache_stats(state: CacheState, values: Optional[list] = None) -> dict[str, Any]:
+def cache_stats(state: CacheState, values: Optional[list] = None,
+                batch_shards: int = 1) -> dict[str, Any]:
     """Summary statistics; the same keys as the JAX package's.  One device
-    read (:func:`stat_tensor`), unless ``values`` holds what it reads."""
+    read (:func:`stat_tensor`), unless ``values`` holds what it reads.
+    ``batch_shards``: the state holds one rank's rows of a batch sharded
+    that many ways (a mesh's data axis)."""
     if values is None:
         values = stat_tensor(state).tolist()
     n_guard, realized_sum, predicted_sum, realized_max, overrun, peak, growth = values
@@ -636,16 +654,16 @@ def cache_stats(state: CacheState, values: Optional[list] = None) -> dict[str, A
         ),
         "overrun_mark": overrun,
         "eps_norm_peak": peak,
-        "eps_norm_scale": _eps_norm_scale(state, peak),
+        "eps_norm_scale": _eps_norm_scale(state, peak, batch_shards),
         "eps_norm_growth": growth,
     }
 
 
-def _eps_norm_scale(state: CacheState, peak: float) -> float:
+def _eps_norm_scale(state: CacheState, peak: float, batch_shards: int = 1) -> float:
     """Peak refresh-time ε̂ norm relative to the unit-noise expectation: the
     score level norms the whole (B, T, C) ε̂, the token level each token over
     (B, C)."""
-    numel = state.eps_hat.numel()
+    numel = state.eps_hat.numel() * batch_shards
     if numel == 0 or peak == 0.0:
         return 0.0
     if state.eps_norm_ref.ndim == 1:

@@ -10,18 +10,27 @@ the score model, saves the composed config as ``train_config.yaml`` in the run
 directory (``run_dir/run_id``), and fits: checkpoints in ``checkpoints/``,
 the resume snapshot in ``resume/``, metrics in ``metrics.jsonl``.  It runs on
 the CUDA card; ``+device=cpu`` runs it on the CPU.
+
+Under ``torchrun --nproc-per-node N`` (one process a card) it starts the
+process group torchrun describes (NCCL, each process on the card of its
+``LOCAL_RANK``; gloo with ``+device=cpu``), and ``trainer.use_mesh`` (true in
+``configs/trainer/default.yaml``) trains data-parallel over all N; only rank
+0 writes the run's files.
 """
 
 from __future__ import annotations
 
 import json
 import logging
+import os
 import sys
 import time
 from typing import Any, Optional
 
 import torch
+import torch.distributed as dist
 
+from fdtpu_torch.dist.parallel import writes
 from fdtpu_torch.sampling import DiffusionSampler
 from fdtpu_torch.train import Trainer, get_training_params
 from fdtpu_torch.train.callbacks import DiffusionMethodComparisonCallback, SamplingCallback
@@ -47,13 +56,28 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def _start_world(device: torch.device) -> torch.device:
+    """Under torchrun (``WORLD_SIZE`` > 1): start its process group, NCCL
+    on this process's card or gloo on the CPU, and return the device; else
+    ``device`` as it is."""
+    if int(os.environ.get("WORLD_SIZE", "1")) <= 1 or dist.is_initialized():
+        return device
+    if device.type == "cuda":
+        device = torch.device("cuda", int(os.environ.get("LOCAL_RANK", "0")))
+        torch.cuda.set_device(device)
+    dist.init_process_group("nccl" if device.type == "cuda" else "gloo")
+    return device
+
+
 class TrainingRunner:
     """Build everything a training run needs from a composed config."""
 
     def __init__(self, cfg: dict[str, Any]) -> None:
         self.cfg = cfg
         logging.info("Training config:\n%s", dict_to_str(flatten_config(cfg)))
-        self.device = resolve_device(cfg.get("device"))
+        started = dist.is_initialized()
+        self.device = _start_world(resolve_device(cfg.get("device")))
+        self.started_world = dist.is_initialized() and not started
 
         self.datamodule = build_datamodule(cfg)
         self.datamodule.prepare_data()
@@ -67,7 +91,8 @@ class TrainingRunner:
             **{k: trainer_cfg[k] for k in TRAINER_KEYS if k in trainer_cfg},
         )
         # The run's config, which the sample CLI rebuilds the data from.
-        save_config(cfg, self.trainer.run_dir / "train_config.yaml")
+        if writes():
+            save_config(cfg, self.trainer.run_dir / "train_config.yaml")
 
         params = get_training_params(self.datamodule, self.trainer.max_epochs,
                                      accumulate_grad_batches=self.trainer.accumulate_grad_batches)
@@ -113,7 +138,7 @@ class TrainingRunner:
         (``configs/train_with_cache_benchmark.yaml``), written to
         ``cache_benchmark.json``."""
         cb = self.cfg.get("cache_benchmark") or {}
-        if not cb:
+        if not cb or not writes():
             return
         num_samples = int(cb.get("num_samples", 5))
         steps = int(cb.get("num_diffusion_steps", 5))
@@ -154,7 +179,11 @@ def main(argv: Optional[list[str]] = None) -> TrainingRunner:
     if run_id:
         cfg["run_id"] = run_id
     runner = TrainingRunner(cfg)
-    runner.train()
+    try:
+        runner.train()
+    finally:
+        if runner.started_world:
+            dist.destroy_process_group()
     return runner
 
 

@@ -14,6 +14,7 @@ from typing import Callable, Optional
 import torch
 
 from fdtpu_torch.diffusion.sde import SDE
+from fdtpu_torch.dist.parallel import draw
 
 
 def sde_loss(
@@ -27,6 +28,7 @@ def sde_loss(
     train: bool = True,
     sample_weight: Optional[torch.Tensor] = None,
     noise: Optional[torch.Tensor] = None,
+    weight_total: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Scalar DSM loss over a mini-batch.
 
@@ -45,15 +47,20 @@ def sde_loss(
         sample_weight: optional ``(B,)`` weights; the loss becomes
             ``sum(w·l) / max(sum(w), 1)``.
         noise: optional standard normal ``z`` of x's shape.
+        weight_total: the ``sum(w)`` of that denominator when ``x`` is one
+            rank's rows of a batch sharded over a mesh (the whole batch's).
+
+    A :class:`~fdtpu_torch.dist.parallel.ShardedGenerator` draws t, z and
+    the masks of the whole batch and keeps this rank's rows.
     """
     batch_size = x.shape[0]
     if (timesteps is None or noise is None) and generator is None:
         raise ValueError("sde_loss needs a generator unless timesteps and noise are given")
     if timesteps is None:
-        u = torch.rand((batch_size,), generator=generator, device=x.device, dtype=x.dtype)
+        u = draw(torch.rand, (batch_size,), generator, x.device, x.dtype)
         timesteps = u * (scheduler.T - scheduler.eps) + scheduler.eps
     if noise is None:
-        noise = torch.randn(x.shape, generator=generator, device=x.device, dtype=x.dtype)
+        noise = draw(torch.randn, x.shape, generator, x.device, x.dtype)
 
     _, std = scheduler.marginal_prob(x, timesteps)  # (B, max_len)
     var = std**2
@@ -75,5 +82,6 @@ def sde_loss(
         losses = 0.5 * torch.sum(losses, dim=-1)
     if sample_weight is not None:
         w = sample_weight.to(losses.dtype)
-        return torch.sum(w * losses) / torch.clamp(torch.sum(w), min=1.0)
+        total = torch.sum(w) if weight_total is None else weight_total.to(losses.dtype)
+        return torch.sum(w * losses) / torch.clamp(total, min=1.0)
     return torch.mean(losses)

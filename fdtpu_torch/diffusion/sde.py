@@ -17,6 +17,8 @@ from typing import Optional
 import numpy as np
 import torch
 
+from fdtpu_torch.dist.parallel import draw
+
 
 def noise_scaling_vector(
     max_len: int, fourier_noise_scaling: bool, device=None
@@ -99,7 +101,7 @@ class SDE:
         if noise is None:
             if device is None:
                 device = self.G.device if self.G is not None else "cpu"
-            noise = torch.randn(shape, generator=generator, device=device)
+            noise = draw(torch.randn, shape, generator, device)
         g = self.G
         if g is None:
             g = noise_scaling_vector(shape[1], self.fourier_noise_scaling)

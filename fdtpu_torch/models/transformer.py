@@ -45,6 +45,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from fdtpu_torch.dist.parallel import draw
 from fdtpu_torch.kernels.attention import fused_mha, mha_plain
 from fdtpu_torch.kernels.blockdiag_attention import blockdiag_mha_trainable
 from fdtpu_torch.models.initializers import linear_init_, xavier_uniform_
@@ -82,14 +83,18 @@ def _lin(x: torch.Tensor, layer: nn.Linear) -> torch.Tensor:
 
 
 def _dropout(
-    x: torch.Tensor, rate: float, train: bool, generator: Optional[torch.Generator]
+    x: torch.Tensor, rate: float, train: bool, generator: Optional[torch.Generator],
+    cols: bool = False,
 ) -> torch.Tensor:
     """Inverted dropout with a keep-mask drawn from ``generator``; the
-    identity unless training with a positive rate and a generator."""
+    identity unless training with a positive rate and a generator.  A
+    :class:`~fdtpu_torch.dist.parallel.ShardedGenerator` draws the global
+    batch's mask (``cols``: of the whole width of a column-parallel
+    activation) and keeps this rank's part."""
     if not train or rate <= 0.0 or generator is None:
         return x
     keep = 1.0 - rate
-    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    mask = draw(torch.rand, x.shape, generator, x.device, cols=cols) < keep
     return torch.where(mask, x / keep, 0.0)
 
 
@@ -118,6 +123,9 @@ class EncoderLayer(nn.Module):
         self.linear2 = nn.utils.skip_init(nn.Linear, dim_feedforward, d_model)
         self.norm1 = LayerNorm(d_model, ln_eps)
         self.norm2 = LayerNorm(d_model, ln_eps)
+        # Set by fdtpu_torch.dist.tensor_parallel.parallelize: the model axis
+        # whose ranks each hold n_head heads and their share of the FFN.
+        self.model_axis = None
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
         """torch MultiheadAttention: xavier-uniform in-projection and zero
@@ -159,10 +167,12 @@ class EncoderLayer(nn.Module):
     def _self_attention(self, x: torch.Tensor, store: Optional[KVStore] = None) -> torch.Tensor:
         """Full attention over (B, T, D); with ``store``, the fresh K/V are
         written into it in the standard (B, T, H, Dh) layout."""
-        b, t, d = x.shape
+        b, t, d_in = x.shape
+        w, bias = self._in_proj(x.dtype)
+        # The width of this rank's heads (all of d_model without a model axis).
+        d = w.shape[0] // 3
         h = self.n_head
         dh = d // h
-        w, bias = self._in_proj(x.dtype)
         if self.attention_impl == "einsum":
             qkv = F.linear(x, w, bias)
             q, k, v = (a.reshape(b, t, h, dh) for a in qkv.split(d, dim=-1))
@@ -172,9 +182,9 @@ class EncoderLayer(nn.Module):
             return mha_plain(q, k, v).reshape(b, t, d)
         # Kernel layouts: q merged (B, T, D), k (B, H, Dh, T), v (B, H, T, Dh).
         q = F.linear(x, w[:d], bias[:d])
-        k = torch.einsum("btc,hec->bhet", x, w[d:2 * d].reshape(h, dh, d))
+        k = torch.einsum("btc,hec->bhet", x, w[d:2 * d].reshape(h, dh, d_in))
         k = (k + bias[d:2 * d].reshape(1, h, dh, 1)).contiguous()
-        v = torch.einsum("btc,hec->bhte", x, w[2 * d:].reshape(h, dh, d))
+        v = torch.einsum("btc,hec->bhte", x, w[2 * d:].reshape(h, dh, d_in))
         v = (v + bias[2 * d:].reshape(1, h, 1, dh)).contiguous()
         if store is not None:
             # One transposed copy of each per layer and refresh: the store
@@ -193,11 +203,31 @@ class EncoderLayer(nn.Module):
         """Output projection, residuals, LayerNorms and FFN around the
         attention output ``attn`` (B, T, D) of ``x``."""
         rate = self.dropout
-        attn = _lin(attn, self.out_proj)
+        attn = self._row(attn, self.out_proj)
         x = self.norm1(x + _dropout(attn, rate, train, generator))
-        ff = _dropout(torch.relu(_lin(x, self.linear1)), rate, train, generator)
-        ff = _lin(ff, self.linear2)
+        ff = _dropout(torch.relu(_lin(self._to_model(x), self.linear1)), rate, train, generator,
+                      cols=True)
+        ff = self._row(ff, self.linear2)
         return self.norm2(x + _dropout(ff, rate, train, generator))
+
+    def _to_model(self, x: torch.Tensor) -> torch.Tensor:
+        """The input of a column-parallel projection: ``x`` itself, or under
+        a model axis the identity whose backward sums the ranks' gradients."""
+        if self.model_axis is None:
+            return x
+        from fdtpu_torch.dist.tensor_parallel import copy_to_model
+
+        return copy_to_model(x, self.model_axis.group)
+
+    def _row(self, a: torch.Tensor, layer: nn.Linear) -> torch.Tensor:
+        """A row-parallel output projection: ``layer(a)``, or under a model
+        axis the ranks' partial products summed, then the bias."""
+        if self.model_axis is None:
+            return _lin(a, layer)
+        from fdtpu_torch.dist.tensor_parallel import reduce_from_model
+
+        part = F.linear(a, layer.weight.to(a.dtype))
+        return reduce_from_model(part, self.model_axis.group) + layer.bias.to(a.dtype)
 
     def forward(
         self,
@@ -207,7 +237,7 @@ class EncoderLayer(nn.Module):
     ) -> torch.Tensor:
         """One post-norm encoder layer over (B, T, D) hidden states; dropout
         only with ``train`` and a ``generator``."""
-        return self._block(x, self._self_attention(x), train, generator)
+        return self._block(x, self._self_attention(self._to_model(x)), train, generator)
 
     def forward_cached(
         self,

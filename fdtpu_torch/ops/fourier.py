@@ -13,11 +13,12 @@ FreqCa decomposition follows the reference's FFT branch.
 
 from __future__ import annotations
 
-import contextlib
 import math
 from typing import Optional, Union
 
 import torch
+
+from fdtpu_torch.kernels.solve import hermite_solve
 
 
 def n_real_components(max_len: int) -> int:
@@ -121,7 +122,10 @@ def frequency_decompose_fft(
     the parts below and above the first ``max(1, int(n_freq · ratio))`` rfft
     bins (``fdtpu/ops/fourier.py:237-267``, its FFT branch: both parts are
     inverse transforms of the masked spectrum, so ``x_high`` is not
-    ``x − x_low`` to the last bit)."""
+    ``x − x_low`` to the last bit).  The parts are contiguous (the inverse
+    transform along axis 1 writes another layout), so what is computed from
+    them sums in one order wherever they are kept: the sampler's chain and
+    the exported program, whose branches hand back contiguous copies."""
     was_2d = x.ndim == 2
     if was_2d:
         x = x[None]
@@ -131,8 +135,8 @@ def frequency_decompose_fft(
     xf = torch.fft.rfft(x, dim=1, norm="ortho")
     shape = (1, n_freq) + (1,) * (x.ndim - 2)
     low_mask = (torch.arange(n_freq, device=x.device) < n_low).to(x.dtype).view(shape)
-    x_low = torch.fft.irfft(xf * low_mask, n=seq_len, dim=1, norm="ortho")
-    x_high = torch.fft.irfft(xf * (1 - low_mask), n=seq_len, dim=1, norm="ortho")
+    x_low = torch.fft.irfft(xf * low_mask, n=seq_len, dim=1, norm="ortho").contiguous()
+    x_high = torch.fft.irfft(xf * (1 - low_mask), n=seq_len, dim=1, norm="ortho").contiguous()
     if was_2d:
         x_low, x_high = x_low[0], x_high[0]
     return x_low, x_high
@@ -165,24 +169,6 @@ def hermite_polynomials(s: torch.Tensor, order: int = 2) -> torch.Tensor:
 def hermite_design_matrix(s: torch.Tensor, order: int) -> torch.Tensor:
     """Design matrix ``(K, order+1)`` of Hermite polynomials at ``s (K,)``."""
     return hermite_polynomials(s, order=order).T
-
-
-@contextlib.contextmanager
-def _cusolver(device: torch.device):
-    """cuSOLVER for a solve on the card.  PyTorch's default picks MAGMA for
-    some shapes (this 4×4 system with a few hundred right-hand sides), whose
-    ``getrs`` refuses CUDA-graph capture ("operation not permitted when
-    stream is capturing"); cuSOLVER's captures at every shape, and is what
-    the default picks at the flagship's 23,936 right-hand sides."""
-    if device.type != "cuda":
-        yield
-        return
-    previous = torch.backends.cuda.preferred_linalg_library()
-    torch.backends.cuda.preferred_linalg_library("cusolver")
-    try:
-        yield
-    finally:
-        torch.backends.cuda.preferred_linalg_library(previous)
 
 
 def predict_hermite(
@@ -226,7 +212,6 @@ def predict_hermite(
     eye = torch.eye(order + 1, dtype=history.dtype, device=history.device)
     hth = h_matrix.T @ h_matrix + eye * 1e-6
     flat = history.reshape(k, -1) * w[:, None]
-    with _cusolver(history.device):
-        coeffs = torch.linalg.solve_ex(hth, h_matrix.T @ flat, check_errors=False).result
+    coeffs = hermite_solve(hth, h_matrix.T @ flat)
     prediction = (h_target @ coeffs).reshape(history.shape[1:])
     return torch.where(span == 0, history[-1], prediction)

@@ -13,6 +13,8 @@ from typing import Optional, Union
 
 import torch
 
+from fdtpu_torch.dist.parallel import Group, batch_mean
+
 Scale = Union[float, torch.Tensor]
 
 
@@ -111,15 +113,19 @@ def frequency_scale(
     high_scale: Scale = 1.0,
     cutoff_ratio: float = 0.5,
     cutoff_strategy: str = "spatial",
+    group: Group = None,
 ) -> torch.Tensor:
     """Scale the low and high frequency bands of ``x`` independently: along
     the sequence axis of ``(batch, seq_len, channels)``, or radially over the
-    2-D spectrum of ``(batch, H, W, channels)``."""
+    2-D spectrum of ``(batch, H, W, channels)``.  ``x`` may be one rank's
+    rows of a batch whose other rows ``group`` holds: the energy cutoff is
+    the whole batch's (:mod:`fdtpu_torch.dist.parallel`)."""
     if x.ndim == 4:
         return _frequency_scale_2d(x, low_scale, high_scale, cutoff_ratio, cutoff_strategy)
     seq_len = x.shape[1]
     xf = torch.fft.rfft(x, dim=1, norm="ortho")
-    spectrum = torch.abs(xf).mean(dim=(0, 2)) if cutoff_strategy == "energy" else None
+    spectrum = (batch_mean(torch.abs(xf), (0, 2), group) if cutoff_strategy == "energy"
+                else None)
     low, high = create_frequency_masks(
         seq_len // 2 + 1, cutoff_ratio, cutoff_strategy, spectrum, device=x.device
     )
@@ -136,8 +142,9 @@ def apply_fresca_to_score(
     cutoff_strategy: str = "energy",
     timestep: Optional[torch.Tensor] = None,
     num_steps: Optional[int] = None,
+    group: Group = None,
 ) -> torch.Tensor:
-    """FreSca on a score, with the reference's linear decay of a high scale
+    """FreSca on a score (``group`` as in :func:`frequency_scale`), with the reference's linear decay of a high scale
     above 1: h(t) = (1 − t/num_steps)·(h − 1) + 1.  The sampler hands it the
     continuous t in (0, 1], so the decay is almost nil; that is the JAX
     package's behaviour, kept.  A float scale becomes a device tensor by a
@@ -150,7 +157,7 @@ def apply_fresca_to_score(
         t_norm = timestep.to(score.dtype) / num_steps
         decayed = (1.0 - t_norm) * (high - 1.0) + 1.0
         high = torch.where(high > 1.0, decayed, high)
-    return frequency_scale(score, low_scale, high, cutoff_ratio, cutoff_strategy)
+    return frequency_scale(score, low_scale, high, cutoff_ratio, cutoff_strategy, group)
 
 
 def analyze_frequency_content(

@@ -128,7 +128,7 @@ def calibrate_tau_0(
     # are captured once and replayed by every arm.
     cached = DiffusionSampler(model, sample_batch_size, use_cache=True,
                               cache_kwargs={**pilot_kwargs, "tau_0": float(ladder[0])},
-                              batches_per_call=batches_per_call) if ladder else None
+                              mesh=mesh, batches_per_call=batches_per_call) if ladder else None
     for tau in ladder:
         cached.set_tau_0(tau)
         s_ca = run(cached, seed, prior_noise, step_noise)

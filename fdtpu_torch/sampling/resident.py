@@ -77,6 +77,7 @@ from fdtpu_torch.cache.e2crf import (
     with_counters,
 )
 from fdtpu_torch.diffusion.sde import SDE
+from fdtpu_torch.dist.parallel import Axis, ShardedGenerator, batch_first, draw
 from fdtpu_torch.models.score_models import ScoreNetwork, score_apply_cached
 from fdtpu_torch.sampling.sampler import _refresh, _skip, _token_mode_step
 from fdtpu_torch.utils.graphs import CudaGraph, launch_counts, set_counts, write_back
@@ -101,7 +102,12 @@ class Chain:
     ``inject_probes`` mean the caller hands the step noise / the probe
     uniforms in (:meth:`load`), and ``draw_prior`` that the prologue draws
     the prior sample.  ``guard_trace`` (score level) records each step's
-    guard telemetry."""
+    guard telemetry.  ``shard`` (a mesh's data axis) makes the chain one
+    rank's rows of a batch of ``batch × shard.size``: the batch's draws are
+    made whole from the shared generator and cut to the rank's rows, and
+    the cache's reductions over the batch are over the whole batch
+    (:mod:`fdtpu_torch.dist.parallel`), so the collectives run inside the
+    steps (and the captured graph)."""
 
     def __init__(
         self,
@@ -120,6 +126,7 @@ class Chain:
         inject_probes: bool = False,
         draw_prior: bool = False,
         guard_trace: bool = False,
+        shard: Optional[Axis] = None,
     ) -> None:
         mcfg = network.config
         self.network = network.compute_copy()
@@ -142,6 +149,10 @@ class Chain:
         self.score = torch.zeros_like(self.x)
         self.ts, self.step_size = scheduler.timesteps(num_steps, device=self.device)
         self.generator = torch.Generator(device=self.device)
+        self.group = None if shard is None else shard.group
+        # Where the batch's draws come from: the whole batch's, cut to this rank's rows.
+        self.batch_draws = (self.generator if shard is None
+                            else ShardedGenerator(self.generator, shard))
         self.draws_probe = self.level == "token" or (
             self.level == "kv" and cache_cfg.policy == "event"
             and cache_cfg.resolved_random_probe_ratio > 0.0)
@@ -309,15 +320,15 @@ class Chain:
         """The trajectory's draws, in the eager loop's order."""
         self.clock[0].fill_(0)
         if self.draw_prior:
-            self.x.copy_(self.scheduler.prior_sampling(self.x.shape, self.generator,
+            self.x.copy_(self.scheduler.prior_sampling(self.x.shape, self.batch_draws,
                                                        self.device))
         for i in range(self.num_steps):
             if self.probes is not None and not self.inject_probes:
                 self.probes[i].copy_(torch.rand((self.max_len,), generator=self.generator,
                                                 device=self.device))
             if not self.inject_steps:
-                self.noise[i].copy_(torch.randn(self.x.shape, generator=self.generator,
-                                                device=self.device))
+                self.noise[i].copy_(draw(torch.randn, self.x.shape, self.batch_draws,
+                                         self.device))
 
     def _now(self) -> tuple[torch.Tensor, torch.Tensor]:
         t = self.ts.index_select(0, self.clock[0:1]).reshape(())
@@ -326,7 +337,7 @@ class Chain:
     def _draw_noise(self) -> torch.Tensor:
         if self.noise is not None:
             return self.noise.index_select(0, self.clock[0:1])[0]
-        return torch.randn(self.x.shape, generator=self.generator, device=self.device)
+        return draw(torch.randn, self.x.shape, self.batch_draws, self.device)
 
     def _draw_probe(self) -> torch.Tensor:
         if self.probes is not None:
@@ -377,7 +388,7 @@ class Chain:
         t, t_batch = self._now()
         _, std = self.scheduler.marginal_prob(self.x, t_batch)
         score, c, trace = _refresh(self.network, self.view().replace(cold=cold), self.cfg,
-                                   self.pp, self.x, t, t_batch, std, self._since())
+                                   self.pp, self.x, t, t_batch, std, self._since(), self.group)
         if self.trace is not None:
             row = torch.stack([torch.zeros_like(t) + v for v in trace])
             self.trace.index_copy_(0, self.clock[0:1], row.reshape(1, -1))
@@ -392,7 +403,7 @@ class Chain:
     def _token_pre(self) -> None:
         self.probe_now.copy_(self._draw_probe())
         c = self.view()
-        mode, w_drift, mean_drift = token_policy(self.cfg, self.pp, c, self.x)
+        mode, w_drift, mean_drift = token_policy(self.cfg, self.pp, c, self.x, self.group)
         self.w_drift.copy_(w_drift)
         self.mean_drift.copy_(mean_drift)
         cold_full = (mode == TOKEN_FULL) & (c.cold != 0)
@@ -404,7 +415,7 @@ class Chain:
         c = self.view()
         score, c = _token_mode_step(self.network, c.replace(cold=cold), self.cfg, self.pp,
                                     self.x, t_batch, std, self.low_bonus, self.probe_now, mode,
-                                    self.w_drift, self.mean_drift, c.step)
+                                    self.w_drift, self.mean_drift, c.step, self.group)
         self._finish_branch(score, c)
 
     def _kv_pre(self) -> None:
@@ -413,7 +424,7 @@ class Chain:
             mode, mask, count = macro_policy(self.pp, c, self.max_len)
         else:
             probe = self._draw_probe() if self.draws_probe else None
-            mode, mask, count = event_policy(self.cfg, self.pp, c, self.x, probe)
+            mode, mask, count = event_policy(self.cfg, self.pp, c, self.x, probe, self.group)
         self.mask.copy_(mask)
         self.count.copy_(count)
         branch = mode
@@ -426,4 +437,6 @@ class Chain:
         c = self.view()
         score, kv, crf = score_apply_cached(self.network, self.x, t_batch, (c.k, c.v), self.mask,
                                             mode)
+        # The CRF is the batch's first sample's: the first rank's.
+        crf = batch_first(crf, self.group)
         self._finish_branch(score, kv_state_update(self.cfg, c, kv, crf, t, ring))

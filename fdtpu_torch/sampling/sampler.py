@@ -64,6 +64,7 @@ from fdtpu_torch.cache.e2crf import (
     record_guard_measurement,
 )
 from fdtpu_torch.diffusion.sde import SDE
+from fdtpu_torch.dist.parallel import Axis, Group, ShardedGenerator, batch_norm, gather_batch
 from fdtpu_torch.models.score_models import (
     ScoreModel,
     ScoreNetwork,
@@ -139,14 +140,15 @@ def _since(c: CacheState, since: Optional[torch.Tensor], like: torch.Tensor) -> 
 
 
 def _refresh(network, c: CacheState, cfg: E2CRFConfig, pp: PolicyParams, x, t, t_batch, std,
-             since: Optional[torch.Tensor] = None):
+             since: Optional[torch.Tensor] = None, group: Group = None):
     """Full step: run the network, measure the drift against what a skip
     would have predicted, and roll the ε̂ history (and FreqCa's ring).
-    ``since`` as in :func:`_since`.  The step counters are left to the chain
-    (:func:`~fdtpu_torch.cache.e2crf.count_mode`)."""
+    ``since`` as in :func:`_since`; ``x`` may be one rank's rows, ``group``
+    holding the others (:mod:`fdtpu_torch.dist.parallel`).  The step counters
+    are left to the chain (:func:`~fdtpu_torch.cache.e2crf.count_mode`)."""
     score = network(x, t_batch)
     eps_new = -std[..., None] * score
-    denom = torch.linalg.vector_norm(eps_new) + 1e-8
+    denom = batch_norm(eps_new, group=group) + 1e-8
     # Trajectory noise scale: high-water mark of the refresh-time ‖ε̂‖.
     norm_ref = torch.maximum(c.eps_norm_ref, denom.to(x.dtype))
     zero = torch.zeros_like(c.eps_gap)
@@ -158,7 +160,7 @@ def _refresh(network, c: CacheState, cfg: E2CRFConfig, pp: PolicyParams, x, t, t
     else:
         # The denominator is floored at 10% of the trajectory scale.
         eps_pred = eps_predict(c, steps_since, cfg, t)
-        rel = guard_relative_error(torch.linalg.vector_norm(eps_new - eps_pred), denom, norm_ref)
+        rel = guard_relative_error(batch_norm(eps_new - eps_pred, group=group), denom, norm_ref)
         drift_rate = rel / steps_since
     measured = (not c.cold) and steps_since > 1
     trace = (measured, rel, denom, c.err_acc, steps_since)
@@ -218,17 +220,17 @@ def _index_fill(t: torch.Tensor, idx: torch.Tensor, value) -> torch.Tensor:
     return t.index_fill(0, idx, value)
 
 
-def _tok_norms(eps: torch.Tensor) -> torch.Tensor:
+def _tok_norms(eps: torch.Tensor, group: Group = None) -> torch.Tensor:
     """Per-token norms over (batch, channels), float32."""
-    return torch.linalg.vector_norm(eps.float(), dim=(0, 2))
+    return batch_norm(eps.float(), (0, 2), group)
 
 
-def _tok_residual_rate(eps_new, pred, ages, ref) -> torch.Tensor:
+def _tok_residual_rate(eps_new, pred, ages, ref, group: Group = None) -> torch.Tensor:
     """Relative extrapolation residual per token per elapsed step: norms over
     (batch, channels) in float32, ``ages`` the steps the prediction bridged,
     ``ref`` each token's trajectory-scale ε̂ norm (the denominator floor)."""
-    num = torch.linalg.vector_norm((eps_new - pred).float(), dim=(0, 2))
-    rel = guard_relative_error(num, _tok_norms(eps_new) + 1e-8, ref.float())
+    num = batch_norm((eps_new - pred).float(), (0, 2), group)
+    rel = guard_relative_error(num, _tok_norms(eps_new, group) + 1e-8, ref.float())
     return rel / torch.clamp(ages.float(), min=1.0)
 
 
@@ -254,11 +256,13 @@ def _topk_rows(priority: torch.Tensor, budget: int) -> torch.Tensor:
 
 
 def _token_mode_step(network, c: CacheState, cfg: E2CRFConfig, pp: PolicyParams, x, t_batch,
-                     std, low_bonus, probe_u, mode, w_drift, mean_drift, step):
+                     std, low_bonus, probe_u, mode, w_drift, mean_drift, step,
+                     group: Group = None):
     """One step of the token level (``token_level_body``) in ``mode``: FULL,
     TOPK or SKIP, with the policy's ``w_drift`` and ``mean_drift`` and the
     step's probe uniforms ``probe_u`` (T,), read at TOPK; ``step`` is the
-    global step, a 0-d int64 tensor.  The counters are left to the chain."""
+    global step, a 0-d int64 tensor; ``group`` as in :func:`_refresh`.  The
+    counters are left to the chain."""
     max_len = x.shape[1]
     stdc = std[..., None]
     budget = min(int(cfg.token_budget), max_len)
@@ -273,12 +277,13 @@ def _token_mode_step(network, c: CacheState, cfg: E2CRFConfig, pp: PolicyParams,
     if mode == TOKEN_FULL:
         score, kv, _ = score_apply_cached(network, x, t_batch, (c.k, c.v), None, MODE_FULL)
         eps_new = -stdc * score
-        tok_norms = _tok_norms(eps_new).to(c.eps_norm_ref.dtype)
+        tok_norms = _tok_norms(eps_new, group).to(c.eps_norm_ref.dtype)
         norm_ref = torch.maximum(c.eps_norm_ref, tok_norms)
         if c.cold:
             rate = torch.zeros((max_len,), dtype=c.delta_tok.dtype, device=x.device)
         else:
-            rate = _tok_residual_rate(eps_new, eps_pred, age, norm_ref).to(c.delta_tok.dtype)
+            rate = _tok_residual_rate(eps_new, eps_pred, age, norm_ref,
+                                      group).to(c.delta_tok.dtype)
             # Realized mean per-token error over the spans just closed (rate ×
             # age undoes the per-step normalization) against the budget.
             realized = torch.mean(rate.float() * torch.clamp(age, min=1.0))
@@ -309,9 +314,9 @@ def _token_mode_step(network, c: CacheState, cfg: E2CRFConfig, pp: PolicyParams,
         eps_rows = -std.index_select(1, idx)[..., None] * out_rows
         age_rows = age.index_select(0, idx)
         ref_rows = torch.maximum(c.eps_norm_ref.index_select(0, idx),
-                                 _tok_norms(eps_rows).to(c.eps_norm_ref.dtype))
+                                 _tok_norms(eps_rows, group).to(c.eps_norm_ref.dtype))
         rate_rows = _tok_residual_rate(
-            eps_rows, eps_pred.index_select(1, idx), age_rows, ref_rows
+            eps_rows, eps_pred.index_select(1, idx), age_rows, ref_rows, group
         ).to(c.delta_tok.dtype)
         # Guard telemetry of the audited rows: the MEDIAN of their realized
         # errors (one ancient diverged row must not read as a collapse).
@@ -342,21 +347,23 @@ def _token_mode_step(network, c: CacheState, cfg: E2CRFConfig, pp: PolicyParams,
 
 
 def _fresca(use_fresca: bool, low_scale, high_scale, cutoff_ratio: float, cutoff_strategy: str,
-            num_steps: int):
-    """Each step's score transform: FreSca with these settings, or none."""
+            num_steps: int, group: Group = None):
+    """Each step's score transform: FreSca with these settings, or none
+    (``group`` as in :func:`_refresh`)."""
     def fresca(score: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
         if not use_fresca:
             return score
         return apply_fresca_to_score(score, low_scale, high_scale, cutoff_ratio, cutoff_strategy,
-                                     timestep=t, num_steps=num_steps)
+                                     timestep=t, num_steps=num_steps, group=group)
 
     return fresca
 
 
 def _eager_chain(network, scheduler, x0, cache_state, cache_cfg, num_steps, step_noise,
-                 probe_noise, generator, fresca, guard_trace=False):
-    """Run the eager loop from ``x0``; returns the chain
-    (:class:`~fdtpu_torch.sampling.resident.Chain`) and its final state."""
+                 probe_noise, generator, fresca, guard_trace=False, shard=None):
+    """Run the eager loop from ``x0`` (``shard``: one rank's rows, as in
+    :class:`~fdtpu_torch.sampling.resident.Chain`); returns the chain and its
+    final state."""
     from fdtpu_torch.sampling.resident import Chain
 
     pp = None
@@ -371,7 +378,7 @@ def _eager_chain(network, scheduler, x0, cache_state, cache_cfg, num_steps, step
             )
     chain = Chain(network, scheduler, cache_cfg, pp, cache_state, x0.shape[0], num_steps, fresca,
                   x0.device, resident=False, inject_steps=step_noise is not None,
-                  inject_probes=probe_noise is not None, guard_trace=guard_trace)
+                  inject_probes=probe_noise is not None, guard_trace=guard_trace, shard=shard)
     chain.load(x0, step_noise, probe_noise)
     chain.begin_call(generator)
     chain.run_eager()
@@ -444,7 +451,22 @@ class DiffusionSampler:
     The values are those of ``batches_per_call=1``, the eager per-step loop
     (a device read a step).  After a call,
     ``last_modes`` holds each batch's mode at every step ((batches, steps),
-    on the device; None uncached).  ``mesh`` is not ported yet (ROADMAP.md).
+    on the device; None uncached).
+
+    ``mesh`` (a :class:`~torch.distributed.device_mesh.DeviceMesh` with a
+    ``data`` axis, :func:`fdtpu_torch.dist.create_mesh`; every rank of it
+    constructs the sampler and calls :meth:`sample` alike): each batch is
+    sharded over ``data``, as the JAX package's ``_shard_cache_state`` places
+    it — this rank runs its ``sample_batch_size / data`` rows, with ε̂, its
+    history and FreqCa's ε̂ ring, and the K/V stores, of those rows; every
+    other cache field replicated.  The batch's draws are the whole batch's,
+    from the same generator on every rank in the single-device order, cut to
+    the rank's rows; every reduction of the cache over the batch is over the
+    whole batch (:mod:`fdtpu_torch.dist.parallel`), so every rank takes the
+    same decisions.  :meth:`sample` returns the whole batch on every rank (an
+    ``all_gather``), as the JAX package returns the global array;
+    ``last_cache_state`` holds this rank's rows.  A ``model`` axis of the mesh
+    repeats the same work on each of its ranks.
     """
 
     def __init__(
@@ -461,8 +483,16 @@ class DiffusionSampler:
         mesh: Optional[Any] = None,
         batches_per_call: int = 1,
     ) -> None:
+        self.mesh = mesh
+        self.shard: Optional[Axis] = None
         if mesh is not None:
-            raise NotImplementedError("mesh is not ported yet (ROADMAP.md: distribution)")
+            from torch.distributed.device_mesh import DeviceMesh
+
+            if not isinstance(mesh, DeviceMesh):
+                raise TypeError(f"mesh must be a torch DeviceMesh (fdtpu_torch.dist.create_mesh), "
+                                f"got {type(mesh).__name__}")
+            self.shard = Axis.of(mesh, "data")
+            self.shard.rows(sample_batch_size)
         self.score_model = score_model
         self.noise_scheduler = score_model.scheduler
         self.sample_batch_size = sample_batch_size
@@ -521,12 +551,28 @@ class DiffusionSampler:
                 stacklevel=3,
             )
 
+    def _local(self, batch_size: int) -> int:
+        """This rank's rows of a batch of ``batch_size``."""
+        if self.shard is None:
+            return batch_size
+        rows = self.shard.rows(batch_size)
+        return rows.stop - rows.start
+
+    def _rows(self, x: Optional[torch.Tensor], dim: int = 0) -> Optional[torch.Tensor]:
+        """This rank's rows of an injected draw of the whole batch (axis ``dim``)."""
+        if x is None or self.shard is None:
+            return x
+        return x.narrow(dim, self.shard.index * self._local(x.shape[dim]),
+                        self._local(x.shape[dim]))
+
     def _init_cache(self, batch_size: int) -> Optional[CacheState]:
+        """A fresh cache for a batch of ``batch_size`` (this rank's rows of it)."""
         if not self.use_cache:
             return None
         cfg = self.score_model.config
         return init_cache_state(
-            self.cache_config, batch_size, self.max_len, self.n_channels, self.device,
+            self.cache_config, self._local(batch_size), self.max_len, self.n_channels,
+            self.device,
             num_layers=cfg.num_layers, n_head=cfg.n_head, head_dim=cfg.head_dim,
             d_model=cfg.d_model, kv_dtype=cfg._cdtype,
         )
@@ -537,11 +583,15 @@ class DiffusionSampler:
         generator: Optional[torch.Generator] = None,
         noise: Optional[torch.Tensor] = None,
     ) -> torch.Tensor:
+        """The prior sample of a batch (under a mesh, this rank's rows of it;
+        ``noise``, when given, is the whole batch's)."""
         if noise is not None:
-            noise = noise.to(self.device)
+            noise = self._rows(noise.to(self.device))
+        if self.shard is not None and generator is not None:
+            generator = ShardedGenerator(generator, self.shard)
         return self.noise_scheduler.prior_sampling(
-            (batch_size, self.max_len, self.n_channels), generator, self.device, noise
-        )
+            (self._local(batch_size), self.max_len, self.n_channels), generator, self.device,
+            noise)
 
     def sample(
         self,
@@ -572,7 +622,7 @@ class DiffusionSampler:
         cache_state: Optional[CacheState] = None
 
         def cache_batch(state: CacheState) -> int:
-            # Batch size of whichever per-batch store this level allocates.
+            # Batch size (this rank's rows) of whichever per-batch store this level allocates.
             return state.k.shape[1] if state.k.ndim > 1 else state.eps_hat.shape[0]
 
         for batch_idx in range(num_batches):
@@ -585,16 +635,16 @@ class DiffusionSampler:
             if self.use_cache and (
                 cache_state is None
                 or self.cache_config.reset_between_batches
-                or cache_batch(cache_state) != batch_size
+                or cache_batch(cache_state) != self._local(batch_size)
             ):
                 cache_state = self._init_cache(batch_size)
             elif self.use_cache and batch_idx > 0:
                 cache_state = _prep_cache_for_new_batch(cache_state)
             chain, cache_state = self._eager_batch(
                 x0, cache_state, num_diffusion_steps, generator,
-                None if step_noise is None else step_noise[:, rows],
+                None if step_noise is None else self._rows(step_noise[:, rows], 1),
                 None if probe_noise is None else probe_noise[batch_idx])
-            all_samples.append(chain.x)
+            all_samples.append(self._gather(chain.x))
             modes.append(chain.modes)
 
         self._finish(cache_state, modes, None)
@@ -602,17 +652,22 @@ class DiffusionSampler:
 
     def _fresca_fn(self, num_steps: int):
         return _fresca(self.use_fresca, self.fresca_low_scale, self.fresca_high_scale,
-                       self.fresca_cutoff_ratio, self.fresca_cutoff_strategy, num_steps)
+                       self.fresca_cutoff_ratio, self.fresca_cutoff_strategy, num_steps,
+                       None if self.shard is None else self.shard.group)
 
     def _eager_batch(self, x0, cache_state, num_steps, generator, step_noise, probe_noise):
         return _eager_chain(self.score_model.network, self.noise_scheduler, x0, cache_state,
                             self.cache_config, num_steps, step_noise, probe_noise, generator,
-                            self._fresca_fn(num_steps))
+                            self._fresca_fn(num_steps), shard=self.shard)
+
+    def _gather(self, x: torch.Tensor) -> torch.Tensor:
+        """The whole batch from this rank's rows."""
+        return gather_batch(x, None if self.shard is None else self.shard.group)
 
     def _finish(self, state: Optional[CacheState], modes: list, stats: Optional[list]) -> None:
         self.last_cache_state = state
         self.last_modes = torch.stack(modes) if self.use_cache and modes else None
-        self._last_stats = (cache_stats(state, stats)
+        self._last_stats = (cache_stats(state, stats, self._shards())
                             if state is not None and stats is not None else None)
         self._check_error_budget()
 
@@ -627,9 +682,9 @@ class DiffusionSampler:
             chain = Chain(
                 self.score_model.network, self.noise_scheduler, self.cache_config,
                 self.policy_params, self._init_cache(self.sample_batch_size),
-                self.sample_batch_size, num_steps, self._fresca_fn(num_steps), self.device,
-                resident=True, inject_steps=inject_steps, inject_probes=inject_probes,
-                draw_prior=not inject_prior,
+                self._local(self.sample_batch_size), num_steps, self._fresca_fn(num_steps),
+                self.device, resident=True, inject_steps=inject_steps,
+                inject_probes=inject_probes, draw_prior=not inject_prior, shard=self.shard,
             )
             self._chains[key] = chain
         return chain
@@ -652,7 +707,7 @@ class DiffusionSampler:
             rows = slice(batch_idx * batch, (batch_idx + 1) * batch)
             chain.load(None if prior_noise is None else self.sample_prior(batch, None,
                                                                          prior_noise[rows]),
-                       None if step_noise is None else step_noise[:, rows],
+                       None if step_noise is None else self._rows(step_noise[:, rows], 1),
                        None if probe_noise is None else probe_noise[batch_idx])
             if self.use_cache:
                 if batch_idx == 0 or self.cache_config.reset_between_batches:
@@ -660,7 +715,7 @@ class DiffusionSampler:
                 else:
                     chain.mark_cold()
             chain.run_resident()
-            all_samples.append(chain.x.clone())
+            all_samples.append(self._gather(chain.x.clone()))
             if self.use_cache:
                 modes.append(chain.modes.clone())
         chain.end_call(generator)
@@ -707,4 +762,7 @@ class DiffusionSampler:
             return {}
         if self._last_stats is not None:
             return dict(self._last_stats)
-        return cache_stats(self.last_cache_state)
+        return cache_stats(self.last_cache_state, batch_shards=self._shards())
+
+    def _shards(self) -> int:
+        return 1 if self.shard is None else self.shard.size

@@ -33,16 +33,20 @@ functions, the branches the sampler's own step arithmetic
 equals the sampler bitwise (``tests/test_torch_export.py``).  Attention goes
 through the registered operators: ``fdtpu::blockdiag_mha`` (kernel B1) in
 every full forward under ``attention_impl="blockdiag"``, ``fdtpu::fused_mha``
-(B4) in the cached modes.  Run eagerly, the loop reads its predicate and each
-``cond`` its branch on the host every step, as the eager loop does.
+(B4) in the cached modes; FreqCa's Hermite fit through
+``fdtpu::hermite_solve`` (:mod:`fdtpu_torch.ops.fourier`, cuSOLVER pinned
+inside the operator on the card), as in the sampler.  Run eagerly, the loop
+reads its predicate and each ``cond`` its branch on the host every step, as
+the eager loop does.
 
 Exported levels: uncached; the score level (Taylor ε̂, every ``eps_order``,
-guard on or off, with or without FreSca); the token level; the KV level's
-event and macro policies.  FreqCa (``eps_predictor="freqca"``, ``use_freqca``)
-raises ``NotImplementedError``: its solve pins cuSOLVER with a global
-setting (``ops/fourier.py`` ``_cusolver``) that a traced program does not
-keep (ROADMAP.md).  The JAX package's ``platforms`` choice becomes the
-sampler's device: the program runs where it was exported.
+or FreqCa's ``eps_predictor="freqca"``, guard on or off, with or without
+FreSca); the token level; the KV level's event and macro policies, with or
+without FreqCa's ring (``use_freqca``: inside each mode's branch a ``cond``
+on whether the step adds a ring entry, so each forward is traced once).  A sampler on a
+mesh is not exported (the program is one device's).  The JAX package's
+``platforms`` choice becomes the sampler's device: the program runs where it
+was exported.
 """
 
 from __future__ import annotations
@@ -69,7 +73,10 @@ from fdtpu_torch.cache.e2crf import (
     count_mode,
     counters_of,
     event_policy,
+    RING_FIELDS,
     init_cache_state,
+    kv_ring_due,
+    kv_ring_entry,
     kv_state_update,
     macro_policy,
     score_skip_decision,
@@ -83,13 +90,10 @@ FORMAT = "torch.export/pt2"
 
 
 def _check_exportable(sampler: DiffusionSampler) -> None:
-    """Raise ``NotImplementedError`` for a sampler whose chain is not
-    exported yet (module docstring)."""
-    cfg = sampler.cache_config
-    if cfg is not None and (cfg.eps_predictor == "freqca" or cfg.use_freqca):
-        raise NotImplementedError(
-            "FreqCa is not exported yet: its solve pins cuSOLVER with a global setting "
-            "that a traced program does not keep (ROADMAP.md, A.3)")
+    """Raise ``ValueError`` for a sampler on a mesh (module docstring)."""
+    if sampler.mesh is not None:
+        raise ValueError("a sampler on a mesh is not exported: export one without a mesh; "
+                         "the program runs on one device")
 
 
 def _switch(index: torch.Tensor, branches: Sequence[Callable], operands: tuple,
@@ -192,8 +196,12 @@ class SamplingProgram(nn.Module):
     @staticmethod
     def _out(score: torch.Tensor, c: CacheState) -> tuple:
         """A branch's outputs, each a copy: a ``cond`` branch may not return
-        one of its inputs, as a branch does with the state it leaves alone."""
-        return tuple(a.clone() for a in (score, *cache_tensors(c).values()))
+        one of its inputs, as a branch does with the state it leaves alone.
+        The copies are contiguous, since the branches of a ``cond`` must
+        agree in layout (FreqCa's prediction comes out of the solve
+        column-major)."""
+        return tuple(a.clone(memory_format=torch.contiguous_format)
+                     for a in (score, *cache_tensors(c).values()))
 
     def _step(self, step_noise, probe_noise, i, x, *carried):
         t = self.ts.index_select(0, i.reshape(1)).reshape(())
@@ -276,8 +284,19 @@ class SamplingProgram(nn.Module):
         t_batch, _ = self._std(x, t)
         score, kv, crf = score_apply_cached(self.network, x, t_batch,
                                             (c.k.clone(), c.v.clone()), mask, mode)
-        c = kv_state_update(self.cfg, c, kv, crf, t, False)
-        return self._out(score, c)
+        c_new = kv_state_update(self.cfg, c, kv, crf, t, False)
+        if self.cfg.use_freqca:
+            def entry(crf, t, *ring):
+                return tuple(kv_ring_entry(self.cfg, c.replace(**dict(zip(RING_FIELDS, ring))),
+                                           crf, t).values())
+
+            def keep(crf, t, *ring):
+                return tuple(a.clone() for a in ring)
+
+            ring = torch.cond(kv_ring_due(self.cfg, c), entry, keep,
+                              (crf, t, *(getattr(c, f) for f in RING_FIELDS)))
+            c_new = c_new.replace(**dict(zip(RING_FIELDS, ring)))
+        return self._out(score, c_new)
 
 
 def make_sampling_fn(sampler: DiffusionSampler, num_diffusion_steps: int) -> SamplingProgram:

@@ -1,8 +1,8 @@
 """Load an exported sampling program (the loading half of
 ``fdtpu/serve/export.py``).
 
-Needs torch and the kernels' operator registrations
-(:mod:`fdtpu_torch.kernels`, which the program's attention calls) and
+Needs torch and the operator registrations of :mod:`fdtpu_torch.kernels`
+that the program calls (the attention kernels, FreqCa's Hermite solve) and
 nothing else of the port: no model, sampler, config or checkpoint code, as
 the JAX loader needs only jax.
 """
@@ -15,8 +15,10 @@ from typing import Any, Callable
 
 import torch
 
-# Importing the kernels registers the fdtpu:: operators that the program calls.
-from fdtpu_torch.kernels import attention, blockdiag_attention, build
+from fdtpu_torch.kernels import attention, blockdiag_attention, build, solve
+
+# Importing these registers the fdtpu:: operators that the program calls.
+OPERATOR_MODULES = (attention, blockdiag_attention, solve)
 
 
 def _draw(spec: dict[str, Any], generator: torch.Generator, device: torch.device) -> torch.Tensor:

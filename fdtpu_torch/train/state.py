@@ -60,10 +60,15 @@ def make_lr_schedule(
 
 
 @torch.no_grad()
-def clip_by_global_norm_(grads: list[torch.Tensor], max_norm: float) -> torch.Tensor:
+def clip_by_global_norm_(grads: list[torch.Tensor], max_norm: float,
+                         norm_fn: Optional[Callable[[list[torch.Tensor]], torch.Tensor]] = None
+                         ) -> torch.Tensor:
     """Scale ``grads`` in place to global norm ``max_norm`` where their norm
-    is at least that; return the norm before clipping.  No host sync."""
-    norm = torch.nn.utils.get_total_norm(grads, norm_type=2.0)
+    is at least that; return the norm before clipping.  No host sync.
+    ``norm_fn`` computes the global norm where ``grads`` are one rank's parts
+    (tensor parallelism)."""
+    norm = (torch.nn.utils.get_total_norm(grads, norm_type=2.0) if norm_fn is None
+            else norm_fn(grads))
     clip = norm >= max_norm
     torch._foreach_div_(grads, torch.where(clip, norm, 1.0))
     torch._foreach_mul_(grads, torch.where(clip, max_norm, 1.0))
@@ -86,7 +91,9 @@ class ClippedAdamW:
     folds the gradients into the running mean, and on the micro-step that
     :attr:`emits` also updates from that mean.  The host knows which
     micro-step comes next (:attr:`mini_step`), so a captured step graph is
-    keyed on :attr:`emits`; the mean's divisor is a device count."""
+    keyed on :attr:`emits`; the mean's divisor is a device count.
+    ``grad_norm``: the clip's global norm, for parameters that are one
+    rank's parts of a tensor-parallel model (:func:`clip_by_global_norm_`)."""
 
     def __init__(
         self,
@@ -96,8 +103,10 @@ class ClippedAdamW:
         weight_decay: float = 0.01,
         horizon: int = 1,
         accumulate_grad_batches: int = 1,
+        grad_norm: Optional[Callable[[list[torch.Tensor]], torch.Tensor]] = None,
     ) -> None:
         self.params = [p for p in params if p.requires_grad]
+        self.grad_norm = grad_norm
         self.schedule = schedule
         self.gradient_clip_val = gradient_clip_val
         self.weight_decay = weight_decay
@@ -156,7 +165,7 @@ class ClippedAdamW:
             if not self.emits:
                 return
             grads = self.acc
-        clip_by_global_norm_(grads, self.gradient_clip_val)
+        clip_by_global_norm_(grads, self.gradient_clip_val, self.grad_norm)
         b1, b2 = ADAM_BETAS
         last = self.rates.shape[0] - 1
         lr = self.rates.index_select(0, torch.clamp(self.updates, max=last).reshape(1))[0]
@@ -208,11 +217,13 @@ def make_optimizer(
     gradient_clip_val: float = 1.0,
     weight_decay: float = 0.01,
     accumulate_grad_batches: int = 1,
+    grad_norm: Optional[Callable[[list[torch.Tensor]], torch.Tensor]] = None,
 ) -> ClippedAdamW:
     """AdamW + warmup-cosine + global-norm clipping over ``params``, one
-    update every ``accumulate_grad_batches`` micro-steps."""
+    update every ``accumulate_grad_batches`` micro-steps (``grad_norm`` as in
+    :class:`ClippedAdamW`)."""
     schedule = make_lr_schedule(lr_max, num_training_steps, num_warmup_steps)
     # The schedule is constant (0) from step max(2, num_training_steps) on.
     return ClippedAdamW(params, schedule, gradient_clip_val, weight_decay,
                         horizon=max(2, num_training_steps) + 1,
-                        accumulate_grad_batches=accumulate_grad_batches)
+                        accumulate_grad_batches=accumulate_grad_batches, grad_norm=grad_norm)

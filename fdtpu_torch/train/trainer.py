@@ -32,8 +32,12 @@ the val loss and the running best parameters on the device, that many epochs
 per captured graph on the card; callbacks, the best checkpoint and the
 resume snapshot at call boundaries.  Its trajectory differs from the host
 loop's (the device shuffle, the draws' order) and does not depend on
-``epochs_per_call``.  Not ported here (ROADMAP.md): the dp×tp mesh (one
-device only).
+``epochs_per_call``.
+
+``mesh`` / ``use_mesh``: data parallelism over the mesh's ``data`` axis and
+tensor parallelism over its ``model`` axis, one process a device
+(:mod:`fdtpu_torch.train.parallel`), with every path above; only rank 0
+writes the run's files.
 """
 
 from __future__ import annotations
@@ -48,11 +52,14 @@ from typing import Any, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from fdtpu_torch.diffusion.losses import sde_loss
 from fdtpu_torch.diffusion.sde import SDE
+from fdtpu_torch.dist.parallel import writes
 from fdtpu_torch.models.score_models import ScoreModel, ScoreNetwork
 from fdtpu_torch.train import checkpoint
+from fdtpu_torch.train.parallel import MeshTraining
 from fdtpu_torch.train.state import ClippedAdamW, make_optimizer
 from fdtpu_torch.utils import wandb
 from fdtpu_torch.utils.device import module_device
@@ -89,15 +96,43 @@ def train_step(
 
 
 def _loss_and_update(network, optimizer, scheduler, batch, generator, likelihood_weighting,
-                     sample_weight=None):
-    """A step's device work: loss, backward, update (no host value)."""
-    loss = sde_loss(network, scheduler, batch, generator=generator,
-                    likelihood_weighting=likelihood_weighting, train=True,
-                    sample_weight=sample_weight)
+                     sample_weight=None, mesh: Optional[MeshTraining] = None,
+                     weight_total=None):
+    """A step's device work: loss, backward, update (no host value).  On a
+    ``mesh``, ``batch`` and ``sample_weight`` are this rank's rows and
+    ``weight_total`` the whole batch's ``Σ w``; the loss returned is the
+    whole batch's (:mod:`fdtpu_torch.train.parallel`)."""
+    if mesh is None:
+        loss = sde_loss(network, scheduler, batch, generator=generator,
+                        likelihood_weighting=likelihood_weighting, train=True,
+                        sample_weight=sample_weight)
+        optimizer.zero_grad()
+        loss.backward()
+        optimizer.update()
+        return loss.detach()
+    loss = _mesh_loss(network, scheduler, batch, generator, likelihood_weighting, mesh, True,
+                      sample_weight, weight_total)
     optimizer.zero_grad()
     loss.backward()
+    mesh.average_gradients(optimizer.params)
     optimizer.update()
-    return loss.detach()
+    return mesh.global_loss(loss.detach())
+
+
+def _mesh_loss(network, scheduler, batch, generator, likelihood_weighting, mesh, train,
+               sample_weight=None, weight_total=None):
+    """A rank's loss, whose ranks' mean is the whole batch's loss (with
+    row weights, the rank's weighted sum over the whole batch's weights,
+    times the ranks)."""
+    loss = sde_loss(network, scheduler, batch, generator=mesh.draws(generator),
+                    likelihood_weighting=likelihood_weighting, train=train,
+                    sample_weight=sample_weight, weight_total=weight_total)
+    return loss if sample_weight is None else loss * mesh.data.size
+
+
+def _trainable(network) -> list[str]:
+    """The names of the network's trainable parameters: the optimizer's, in order."""
+    return [n for n, p in network.named_parameters() if p.requires_grad]
 
 
 def group_same_shape(batches: list, cap: int):
@@ -130,8 +165,10 @@ class GraphedSteps:
     the CPU the same steps run directly."""
 
     def __init__(self, network, optimizer: ClippedAdamW, scheduler: SDE,
-                 generator: torch.Generator, likelihood_weighting: bool, capacity: int) -> None:
+                 generator: torch.Generator, likelihood_weighting: bool, capacity: int,
+                 mesh: Optional[MeshTraining] = None) -> None:
         self.network = network
+        self.mesh = mesh
         self.optimizer = optimizer
         self.scheduler = scheduler
         self.generator = generator
@@ -164,7 +201,7 @@ class GraphedSteps:
     def _step(self, chunk: torch.Tensor, losses: torch.Tensor, j: torch.Tensor) -> None:
         loss = _loss_and_update(self.network, self.optimizer, self.scheduler,
                                 chunk.index_select(0, j)[0], self.generator,
-                                self.likelihood_weighting)
+                                self.likelihood_weighting, mesh=self.mesh)
         losses.index_copy_(0, j, loss.reshape(1))
         j.add_(1)
 
@@ -204,25 +241,41 @@ class ResidentEpochs:
     position that occurs (gradient accumulation bakes whether a micro-step
     updates), captured after one train and one val step warmed the kernels
     up on copies that are then put back.  On the CPU the same epochs run
-    directly."""
+    directly.
+
+    On a ``mesh`` every rank holds the whole train split and draws the same
+    permutation; each batch is padded with zero-weight rows (row 0) to a
+    multiple of the data axis, as the JAX loop pads to ``B_pad``, and each
+    rank takes its rows of it, of the val batches and of their weights."""
 
     def __init__(self, network, optimizer: ClippedAdamW, scheduler: SDE,
                  generator: torch.Generator, likelihood_weighting: bool, train_x: np.ndarray,
-                 val_x: np.ndarray, batch: int) -> None:
+                 val_x: np.ndarray, batch: int, mesh: Optional[MeshTraining] = None) -> None:
         self.device = dev = optimizer.params[0].device
         self.network, self.optimizer, self.scheduler = network, optimizer, scheduler
         self.generator, self.likelihood_weighting = generator, likelihood_weighting
+        self.mesh = mesh
         self.n_train, self.batch = len(train_x), batch
         self.steps = -(-self.n_train // batch)
         val_steps = -(-len(val_x) // batch)
         self.x = torch.from_numpy(np.ascontiguousarray(train_x, np.float32)).to(dev)
         xv = np.zeros((val_steps * batch, *val_x.shape[1:]), np.float32)
         xv[:len(val_x)] = val_x
-        self.xv = torch.from_numpy(xv.reshape(val_steps, batch, *val_x.shape[1:])).to(dev)
-        self.w = torch.from_numpy(padded_weights(self.n_train, self.steps, batch)).to(dev)
+        xv = xv.reshape(val_steps, batch, *val_x.shape[1:])
+        w = padded_weights(self.n_train, self.steps, batch)
         wv = padded_weights(len(val_x), val_steps, batch)
-        self.wv = torch.from_numpy(wv).to(dev)
         frac = wv.sum(axis=1)
+        if mesh is not None:
+            # The whole padded batch's Σ w, then this rank's rows of each batch.
+            self.batch_pad = -(-batch // mesh.data.size) * mesh.data.size
+            self.cols = mesh.data.rows(self.batch_pad)
+            xv, w, wv = (self._pad_cols(a) for a in (xv, w, wv))
+            self.w_total = torch.from_numpy(w.sum(axis=1)).to(dev)
+            self.wv_total = torch.from_numpy(wv.sum(axis=1)).to(dev)
+            xv, w, wv = (np.ascontiguousarray(a[:, self.cols]) for a in (xv, w, wv))
+        self.xv = torch.from_numpy(xv).to(dev)
+        self.w = torch.from_numpy(w).to(dev)
+        self.wv = torch.from_numpy(wv).to(dev)
         self.v_frac = torch.from_numpy(frac / frac.sum()).to(dev)
         self.pad = torch.zeros((self.steps * batch - self.n_train,), dtype=torch.int64, device=dev)
         self.best = [p.detach().clone() for p in optimizer.params]
@@ -232,6 +285,29 @@ class ResidentEpochs:
         self.losses: dict[int, tuple[torch.Tensor, torch.Tensor]] = {}
         self.graphs: dict[tuple[int, int], tuple[CudaGraph, tuple[int, ...]]] = {}
         self.pool = torch.cuda.graph_pool_handle() if dev.type == "cuda" else None
+
+    def _pad_cols(self, a: np.ndarray) -> np.ndarray:
+        """(steps, B, …) padded with zeros to (steps, B_pad, …)."""
+        pad = self.batch_pad - a.shape[1]
+        return np.concatenate([a, np.zeros((a.shape[0], pad, *a.shape[2:]), a.dtype)], axis=1)
+
+    def _train_step(self, rows: torch.Tensor, s):
+        """One optimizer step on train rows ``rows`` with batch ``s``'s weights."""
+        return _loss_and_update(self.network, self.optimizer, self.scheduler,
+                                self.x.index_select(0, rows), self.generator,
+                                self.likelihood_weighting, self.w[s], self.mesh,
+                                None if self.mesh is None else self.w_total[s])
+
+    def _val_loss(self, i) -> torch.Tensor:
+        """The weighted val loss of val batch ``i`` (the whole batch's)."""
+        if self.mesh is None:
+            return sde_loss(self.network, self.scheduler, self.xv[i], generator=self.generator,
+                            likelihood_weighting=self.likelihood_weighting, train=False,
+                            sample_weight=self.wv[i])
+        loss = _mesh_loss(self.network, self.scheduler, self.xv[i], self.generator,
+                          self.likelihood_weighting, self.mesh, False, self.wv[i],
+                          self.wv_total[i])
+        return self.mesh.global_loss(loss)
 
     def start(self, best_val_loss: float) -> None:
         """The running best from the current parameters and ``best_val_loss``
@@ -291,12 +367,10 @@ class ResidentEpochs:
 
         def step():
             draw_permutation(self.n_train, self.generator)
-            _loss_and_update(self.network, opt, self.scheduler, self.x[:self.batch],
-                             self.generator, self.likelihood_weighting, self.w[0])
+            self._train_step(torch.zeros(self.w.shape[1], dtype=torch.int64,
+                                         device=self.device), 0)
             with torch.no_grad():
-                sde_loss(self.network, self.scheduler, self.xv[0], generator=self.generator,
-                         likelihood_weighting=self.likelihood_weighting, train=False,
-                         sample_weight=self.wv[0])
+                self._val_loss(0)
 
         CudaGraph.warm_up(step)
         with torch.no_grad():
@@ -312,18 +386,14 @@ class ResidentEpochs:
         for e in range(n):
             perm = draw_permutation(self.n_train, self.generator)
             idx = torch.cat([perm, self.pad]).reshape(self.steps, self.batch)
+            if self.mesh is not None:
+                # Zero-weight row-0 padding to B_pad, then this rank's rows.
+                idx = torch.nn.functional.pad(idx, (0, self.batch_pad - self.batch))[:, self.cols]
             for s in range(self.steps):
-                loss = _loss_and_update(self.network, opt, self.scheduler,
-                                        self.x.index_select(0, idx[s]), self.generator,
-                                        self.likelihood_weighting, self.w[s])
-                steps_out[e, s].copy_(loss)
+                steps_out[e, s].copy_(self._train_step(idx[s], s))
                 opt.advance()
             with torch.no_grad():
-                val = torch.stack([
-                    sde_loss(self.network, self.scheduler, self.xv[i], generator=self.generator,
-                             likelihood_weighting=self.likelihood_weighting, train=False,
-                             sample_weight=self.wv[i])
-                    for i in range(self.xv.shape[0])])
+                val = torch.stack([self._val_loss(i) for i in range(self.xv.shape[0])])
                 val = torch.sum(val * self.v_frac)
                 vals_out[e].copy_(val)
                 improved = val < self.best_val
@@ -361,11 +431,25 @@ class Trainer:
         the card); 1 is the eager per-step loop.  The training trajectory is
         the same for every value.  ``epochs_per_call`` > 1: that many epochs
         per call of the device-resident loop (:class:`ResidentEpochs`; the
-        module docstring), ``steps_per_call`` then unused.  ``use_mesh`` on
-        one device changes nothing, as with one JAX device; a mesh over
-        several devices is not ported yet (ROADMAP.md)."""
+        module docstring), ``steps_per_call`` then unused.
+
+        ``mesh``: a torch ``DeviceMesh`` with ``("data", "model")`` axes
+        (:func:`fdtpu_torch.dist.create_mesh`) to train over, every rank
+        calling :meth:`fit` alike: the batch sharded over ``data``, the
+        attention and FFN tensor-parallel over ``model``
+        (:mod:`fdtpu_torch.train.parallel`).  ``use_mesh=True`` with no
+        ``mesh`` takes a data-only mesh over the initialized world when it
+        has more than one process (``torchrun``), as the JAX trainer's
+        default mesh spans every device; in one process it changes nothing,
+        as with one JAX device.  Constructed in a world of more than one
+        process (every rank alike), it takes rank 0's ``run_id``."""
         if mesh is not None:
-            raise NotImplementedError("mesh is not ported yet (ROADMAP.md: distribution)")
+            from torch.distributed.device_mesh import DeviceMesh
+
+            if not isinstance(mesh, DeviceMesh):
+                raise TypeError(f"mesh must be a torch DeviceMesh (fdtpu_torch.dist.create_mesh), "
+                                f"got {type(mesh).__name__}")
+        self.mesh = mesh
         self.max_epochs = max_epochs
         self.gradient_clip_val = gradient_clip_val
         self.seed = seed
@@ -378,33 +462,54 @@ class Trainer:
         self.steps_per_call = max(1, int(steps_per_call))
         self.epochs_per_call = max(1, int(epochs_per_call))
         self.run_id = run_id if run_id is not None else time.strftime("%Y%m%d_%H%M%S")
+        if dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1:
+            # Every rank of a world writes under rank 0's run id.
+            names = [self.run_id]
+            dist.broadcast_object_list(names, src=0)
+            self.run_id = names[0]
         self.run_dir = Path(run_dir) / self.run_id
-        self.run_dir.mkdir(parents=True, exist_ok=True)
+        if writes():
+            self.run_dir.mkdir(parents=True, exist_ok=True)
         self.metrics_path = self.run_dir / "metrics.jsonl"
         self.best_val_loss = float("inf")
         self.best_checkpoint: Optional[Path] = None
+        self._mesh: Optional[MeshTraining] = None
 
-    def _check_mesh(self, device: torch.device) -> None:
-        if not self.use_mesh:
-            return
-        if device.type == "cuda" and torch.cuda.device_count() > 1:
-            raise NotImplementedError(
-                f"use_mesh over {torch.cuda.device_count()} CUDA devices: the dp×tp mesh "
-                "is not ported yet (ROADMAP.md: distribution); pass use_mesh=False or "
-                "make one device visible")
-        logging.info("use_mesh on one device: no mesh (the dp×tp mesh is ROADMAP A.8)")
+    def _resolve_mesh(self, device: torch.device) -> Optional[MeshTraining]:
+        """The mesh to train on (class docstring)."""
+        mesh = self.mesh
+        world = dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
+        if mesh is None and self.use_mesh and world > 1:
+            from fdtpu_torch.dist import create_mesh
+
+            mesh = create_mesh(device_type=device.type)
+        if mesh is None:
+            if self.use_mesh and device.type == "cuda" and torch.cuda.device_count() > 1:
+                logging.info("use_mesh: no process group, so no mesh; training on %s "
+                             "(run one process a card, e.g. under torchrun, for a "
+                             "data-parallel mesh)", device)
+            return None
+        return MeshTraining(mesh)
 
     def fit(self, model: ScoreModel, datamodule: Any) -> ScoreModel:
         """Train a copy of ``model.network``; set ``model.network`` to the
         best-val parameters, frozen, and return ``model``."""
         device = module_device(model.network)
-        self._check_mesh(device)
+        mesh = self._mesh = self._resolve_mesh(device)
         network = copy.deepcopy(model.network).train().requires_grad_(True)
+        if mesh is not None:
+            if mesh.model is not None:
+                from fdtpu_torch.dist.mesh import check_model_axis
+
+                check_model_axis(mesh.model.size, model.config.n_head,
+                                 model.config.dim_feedforward)
+            mesh.place(network)
         generator = torch.Generator(device=device).manual_seed(self.seed)
         optimizer = make_optimizer(
             network.parameters(), model.lr_max, model.num_training_steps,
             gradient_clip_val=self.gradient_clip_val,
             accumulate_grad_batches=self.accumulate_grad_batches,
+            grad_norm=None if mesh is None else mesh.grad_norm(network),
         )
         best_state: Optional[dict[str, torch.Tensor]] = None
         start_epoch = global_step = 0
@@ -412,8 +517,10 @@ class Trainer:
             restored = checkpoint.load_train_state(self.run_dir)
             if restored is not None:
                 state, meta = restored
-                network.load_state_dict(state["network"])
-                optimizer.load_state_dict(state["optimizer"])
+                network.load_state_dict(self._local(state["network"]))
+                optimizer.load_state_dict(
+                    state["optimizer"] if mesh is None else
+                    mesh.local_optimizer_state(state["optimizer"], _trainable(network)))
                 generator.set_state(state["generator"])
                 start_epoch = int(meta["epoch"]) + 1
                 global_step = int(meta["global_step"])
@@ -421,7 +528,7 @@ class Trainer:
                 ckpts = self.run_dir / "checkpoints"
                 if any(ckpts.glob("*.ckpt")):
                     self.best_checkpoint = checkpoint.get_best_checkpoint(ckpts)
-                    best_state = checkpoint.load_network_state(self.best_checkpoint)
+                    best_state = self._local(checkpoint.load_network_state(self.best_checkpoint))
                 logging.info("resuming from epoch %d (global step %d)", start_epoch, global_step)
         if self.epochs_per_call > 1:
             best_state = self._fit_resident(model, datamodule, network, optimizer, generator,
@@ -431,8 +538,15 @@ class Trainer:
                                         start_epoch, global_step, best_state)
         if best_state is not None:
             network.load_state_dict(best_state)
+        if mesh is not None:
+            network = mesh.full_network(model.network, network)
         model.network = network.eval().requires_grad_(False)
         return model
+
+    def _local(self, state: dict) -> dict:
+        """This rank's parts of a full network state (the state itself
+        without a model axis)."""
+        return state if self._mesh is None else self._mesh.local_state(state)
 
     def _fit_host(self, model, datamodule, network, optimizer, generator, start_epoch,
                   global_step, best_state):
@@ -440,23 +554,30 @@ class Trainer:
         device = module_device(network)
         scheduler = model.scheduler
         spc = self.steps_per_call
+        mesh = self._mesh
         graphed = (GraphedSteps(network, optimizer, scheduler, generator,
-                                model.likelihood_weighting, spc) if spc > 1 else None)
+                                model.likelihood_weighting, spc, mesh) if spc > 1 else None)
         train_loader = datamodule.train_dataloader()
         if start_epoch:
             train_loader.skip_epochs(start_epoch)
-        val_batches = [torch.from_numpy(b).to(device) for b in datamodule.val_dataloader()]
+        val_sizes, val_batches = [], []
+        for b in datamodule.val_dataloader():
+            val_sizes.append(len(b))
+            val_batches.append(torch.from_numpy(b if mesh is None else mesh.rows(b)).to(device))
         per_update = self.accumulate_grad_batches
 
         for epoch in range(start_epoch, self.max_epochs):
             t0 = time.perf_counter()
             losses = []
             batches = list(train_loader)
+            if mesh is not None:
+                batches = [mesh.rows(b) for b in batches]
             for i, run in group_same_shape(batches, spc):
                 if graphed is None:
-                    step_losses = train_step(network, optimizer, scheduler,
-                                             torch.from_numpy(batches[i]).to(device), generator,
-                                             model.likelihood_weighting).reshape(1)
+                    step_losses = _loss_and_update(
+                        network, optimizer, scheduler, torch.from_numpy(batches[i]).to(device),
+                        generator, model.likelihood_weighting, mesh=mesh).reshape(1)
+                    optimizer.advance()
                 else:
                     step_losses = graphed.run(batches[i:i + run])
                 losses.append(step_losses)
@@ -472,11 +593,13 @@ class Trainer:
                 val_losses = [
                     sde_loss(network, scheduler, xb, generator=generator,
                              likelihood_weighting=model.likelihood_weighting, train=False)
+                    if mesh is None else
+                    mesh.global_loss(_mesh_loss(network, scheduler, xb, generator,
+                                                model.likelihood_weighting, mesh, False))
                     for xb in val_batches
                 ]
             val_loss = (
-                float(np.average(torch.stack(val_losses).cpu().numpy(),
-                                 weights=[len(xb) for xb in val_batches]))
+                float(np.average(torch.stack(val_losses).cpu().numpy(), weights=val_sizes))
                 if val_losses else float("nan")
             )
             dt = time.perf_counter() - t0
@@ -485,7 +608,7 @@ class Trainer:
                 self.best_val_loss = val_loss
                 best_state = {k: v.detach().clone() for k, v in network.state_dict().items()}
                 self._save_best(model, network, epoch, val_loss)
-            self._end_call(network, optimizer, generator, epoch, global_step)
+            self._end_call(model, network, optimizer, generator, epoch, global_step)
         return best_state
 
     def _fit_resident(self, model, datamodule, network, optimizer, generator, start_epoch,
@@ -496,7 +619,8 @@ class Trainer:
         loop = ResidentEpochs(
             network, optimizer, model.scheduler, generator, model.likelihood_weighting,
             datamodule.train_dataloader().dataset.standardized(),
-            datamodule.val_dataloader().dataset.standardized(), int(datamodule.batch_size))
+            datamodule.val_dataloader().dataset.standardized(), int(datamodule.batch_size),
+            self._mesh)
         loop.start(self.best_val_loss)
         per_update = self.accumulate_grad_batches
         epoch = start_epoch
@@ -518,13 +642,10 @@ class Trainer:
                 self.best_val_loss = best_val
                 best_state = {k: v.detach().clone() for k, v in network.state_dict().items()}
                 # The optimizer's parameters are the network's trainable ones, in order.
-                trainable = [n for n, p in network.named_parameters() if p.requires_grad]
-                best_state.update({n: b.clone() for n, b in zip(trainable, loop.best)})
-                best_network = copy.deepcopy(network)
-                best_network.load_state_dict(best_state)
-                self._save_best(model, best_network, best_epoch, best_val)
+                best_state.update({n: b.clone() for n, b in zip(_trainable(network), loop.best)})
+                self._save_best(model, network, best_epoch, best_val, best_state)
             epoch += n
-            self._end_call(network, optimizer, generator, epoch - 1, global_step)
+            self._end_call(model, network, optimizer, generator, epoch - 1, global_step)
         return best_state
 
     def _log_epoch(self, epoch, global_step, train_loss, val_loss, dt, optimizer) -> None:
@@ -534,23 +655,50 @@ class Trainer:
         logging.info("epoch %d: train/loss %.5f val/loss %.5f (%.1fs)",
                      epoch, train_loss, val_loss, dt)
 
-    def _save_best(self, model, network, epoch: int, val_loss: float) -> None:
+    def _full(self, model, network, state: Optional[dict] = None):
+        """``network`` (with ``state`` loaded, if given) with full
+        parameters: a gather over the model axis, which every rank joins."""
+        if self._mesh is not None:
+            return self._mesh.full_network(model.network, network, state)
+        if state is None:
+            return network
+        network = copy.deepcopy(network)
+        network.load_state_dict(state)
+        return network
+
+    def _save_best(self, model, network, epoch: int, val_loss: float,
+                   state: Optional[dict] = None) -> None:
+        network = self._full(model, network, state)
+        if not writes():
+            return
         self.best_checkpoint = checkpoint.save_checkpoint(
             self.run_dir, dataclasses.replace(model, network=network), epoch, val_loss)
         wandb.maybe_log_model(self.best_checkpoint)
 
-    def _end_call(self, network, optimizer, generator, epoch: int, global_step: int) -> None:
-        """The resume snapshot and the callbacks, after ``epoch``."""
+    def _end_call(self, model, network, optimizer, generator, epoch: int,
+                  global_step: int) -> None:
+        """The resume snapshot and the callbacks, after ``epoch`` (rank 0
+        alone on a mesh, with the full parameters)."""
+        mesh = self._mesh
         if self.save_resume_state:
-            checkpoint.save_train_state(
-                self.run_dir,
-                {"network": network.state_dict(), "optimizer": optimizer.state_dict(),
-                 "generator": generator.get_state()},
-                epoch=epoch, global_step=global_step, best_val_loss=self.best_val_loss)
-        for callback in self.callbacks:
-            callback.on_train_epoch_end(trainer=self, network=network, epoch=epoch)
+            opt_state = optimizer.state_dict()
+            if mesh is not None:
+                opt_state = mesh.full_optimizer_state(opt_state, _trainable(network))
+            state = {"network": self._full(model, network).state_dict(),
+                     "optimizer": opt_state, "generator": generator.get_state()}
+            if writes():
+                checkpoint.save_train_state(self.run_dir, state, epoch=epoch,
+                                            global_step=global_step,
+                                            best_val_loss=self.best_val_loss)
+        if self.callbacks:
+            full = self._full(model, network)
+            if writes():
+                for callback in self.callbacks:
+                    callback.on_train_epoch_end(trainer=self, network=full, epoch=epoch)
 
     def _log(self, record: dict[str, Any]) -> None:
+        if not writes():
+            return
         with open(self.metrics_path, "a") as f:
             f.write(json.dumps(record) + "\n")
         wandb.maybe_log_wandb(record)

@@ -118,8 +118,10 @@ def test_calibration_draws_the_same_noise_for_the_pilot_and_every_arm(models):
     assert DEFAULT_LADDER == (1.5, 1.2, 1.0, 0.8, 0.6, 0.4)
 
 
-@pytest.mark.parametrize("kw, match", [(dict(mesh=object(), batches_per_call=2), "distribution"),
-                                       (dict(mesh=object()), "distribution")])
+@pytest.mark.parametrize("kw, match", [(dict(mesh=object(), batches_per_call=2), "DeviceMesh"),
+                                       (dict(mesh=object()), "DeviceMesh")])
 def test_calibration_options_the_sampler_lacks_raise(models, kw, match):
-    with pytest.raises(NotImplementedError, match=match):
+    """``calibrate_tau_0`` hands ``mesh`` to its samplers, as the JAX
+    package's does: one that is not a ``DeviceMesh`` raises there."""
+    with pytest.raises(TypeError, match=match):
         calibrate_tau_0(models[1], num_samples=N, num_diffusion_steps=4, **kw)

@@ -864,13 +864,16 @@ def test_registered_operators_pass_opcheck_on_the_card(cuda, op):
     assert getattr(*counter) > before
 
 
-@pytest.mark.parametrize("name", ["uncached", "score", "token"])
+@pytest.mark.parametrize("name", ["uncached", "score", "token", "score-freqca",
+                                  "kv-event-freqca"])
 def test_exported_flagship_program_equals_the_sampler(cuda, tmp_path, name):
     """The flagship's program (d_model 72, 10 layers, 12 heads, 187 tokens;
     a batch of 128, 50 steps) exported, reloaded and run from a generator:
     bitwise the eager loop's first batch and the resident chain's from the
     same generator, with B1 launched 10 times a full forward and B4 10 times
-    a TOPK step of the sampler's chain."""
+    a TOPK step (a MIXED or CACHED step at the KV level) of the sampler's
+    chain.  FreqCa's programs solve through ``fdtpu::hermite_solve``, whose
+    CUDA implementation pins cuSOLVER inside the operator."""
     from fdtpu_torch.diffusion import VPScheduler
     from fdtpu_torch.models import ScoreModel, ScoreModelConfig, init_score_model
     from fdtpu_torch.serve import export_sampler, load_exported
@@ -899,4 +902,88 @@ def test_exported_flagship_program_equals_the_sampler(cuda, tmp_path, name):
     assert torch.equal(got, want), f"max diff {float((got - want).abs().max()):.3g}"
     assert torch.equal(got, resident[:128])
     full = stats["full_steps"] if kw else 50
-    assert launched == (10 * full, 10 * stats["mixed_steps"] if name == "token" else 0)
+    cached = (stats["mixed_steps"] + stats["cached_steps"] if name.startswith("kv")
+              else stats["mixed_steps"] if name == "token" else 0)
+    assert launched == (10 * full, 10 * cached)
+
+
+# ------------------------------------------------------------- the mesh
+@pytest.fixture
+def one_rank_world(cuda, tmp_path):
+    """A one-process NCCL world (the card is one) and its ``("data",
+    "model")`` mesh; destroyed after the test."""
+    import torch.distributed as dist
+
+    from fdtpu_torch.dist import create_mesh
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path / 'store'}", rank=0,
+                            world_size=1)
+    try:
+        yield create_mesh()
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("per_call", [1, 2], ids=["eager", "resident"])
+@pytest.mark.parametrize("name", ["uncached", "score", "kv-event", "token", "score-freqca",
+                                  "score-fresca"])
+def test_mesh_sampler_at_world_size_one_equals_the_sampler(one_rank_world, name, per_call):
+    """``DiffusionSampler(mesh=)`` on a one-rank NCCL mesh, at the flagship
+    (2 batches of 64, 50 steps), eager and resident (the collectives inside
+    the trajectory's graph): samples, modes and statistics bitwise the
+    sampler's without a mesh from the same generator, B1 and B4 launched as
+    often."""
+    from fdtpu_torch.diffusion import VPScheduler
+    from fdtpu_torch.models import ScoreModel, ScoreModelConfig, init_score_model
+
+    cfg = ScoreModelConfig(n_channels=1, max_len=187, attention_impl="blockdiag")
+    net = init_score_model(cfg, torch.Generator().manual_seed(0), "cuda")
+    model = ScoreModel(config=cfg, network=net, scheduler=VPScheduler(
+        fourier_noise_scaling=True).with_noise_scaling(187, "cuda"))
+    kw, options = FLAGSHIP_CHAINS[name]
+    runs = []
+    for mesh in (None, one_rank_world):
+        sampler = DiffusionSampler(model, 64, use_cache=kw is not None, cache_kwargs=kw,
+                                   batches_per_call=per_call, mesh=mesh, **options)
+        bda.launches = mha.launches = 0
+        x = sampler.sample(128, 50, generator=torch.Generator("cuda").manual_seed(3))
+        torch.cuda.synchronize()
+        runs.append((x, sampler.last_modes, sampler.get_cache_stats(),
+                     (bda.launches, mha.launches)))
+    (x0, m0, s0, c0), (x1, m1, s1, c1) = runs
+    assert torch.equal(x1, x0), f"max diff {float((x1 - x0).abs().max()):.3g}"
+    assert (m0 is None and m1 is None) or torch.equal(m1, m0)
+    assert s1 == s0 and c1 == c0 and c1[0] > 0
+
+
+@pytest.mark.parametrize("loop", [dict(steps_per_call=16), dict(epochs_per_call=2),
+                                  dict(steps_per_call=1, accumulate_grad_batches=2)],
+                         ids=["graphed", "resident", "accumulate"])
+def test_mesh_trainer_at_world_size_one_equals_the_trainer(one_rank_world, tmp_path, loop):
+    """``Trainer(mesh=)`` on a one-rank NCCL mesh (the gradients' all-reduce
+    captured in the step graphs and the epoch graph): parameters and best val
+    loss bitwise the trainer's without a mesh; a small transformer, 2
+    epochs."""
+    from fdtpu_torch.data import SyntheticDatamodule
+    from fdtpu_torch.diffusion import VPScheduler
+    from fdtpu_torch.models import ScoreModel, ScoreModelConfig, init_score_model
+    from fdtpu_torch.train import Trainer, get_training_params
+
+    dm = SyntheticDatamodule(tmp_path / "data", max_len=32, num_samples=300, batch_size=32,
+                             fourier_transform=True, standardize=True)
+    dm.prepare_data()
+    dm.setup()
+    cfg = ScoreModelConfig(n_channels=1, max_len=32, d_model=24, num_layers=2, n_head=4,
+                           dim_feedforward=64, attention_impl="blockdiag")
+    sched = VPScheduler(fourier_noise_scaling=True).with_noise_scaling(32, "cuda")
+    steps = get_training_params(dm, 2, loop.get("accumulate_grad_batches", 1))
+    fits = []
+    for mesh in (None, one_rank_world):
+        model = ScoreModel(cfg, init_score_model(cfg, torch.Generator().manual_seed(0), "cuda"),
+                           sched, num_training_steps=steps["num_training_steps"])
+        trainer = Trainer(max_epochs=2, run_dir=tmp_path / "runs", run_id=str(mesh is None),
+                          seed=3, mesh=mesh, save_resume_state=False, **loop)
+        fits.append((trainer.fit(model, dm).network.state_dict(), trainer.best_val_loss))
+    (p0, v0), (p1, v1) = fits
+    assert v1 == v0 and all(torch.equal(p1[k], p0[k]) for k in p0)

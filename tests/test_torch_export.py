@@ -9,7 +9,7 @@ the same generator: bitwise at every exported level, since both run the same
 functions on the same draws (the loader draws them in the sampler's order).
 The score and token levels' chains must take both kinds of step.  Then the
 program's structure: one ``while_loop`` (the same graph at 8 and 64 steps),
-the JAX meta's keys, ``NotImplementedError`` for FreqCa, and a loader that
+the JAX meta's keys, FreqCa's programs run untraced, and a loader that
 imports no model, sampler, cache or training code and no JAX.  More levels
 are in tests/test_torch_export_levels.py, the JAX comparison and the CLI in
 tests/test_torch_export_jax.py.
@@ -29,7 +29,7 @@ from fdtpu_torch.kernels import attention as mha
 from fdtpu_torch.kernels import blockdiag_attention as bda
 from fdtpu_torch.models import ScoreModel, ScoreModelConfig, init_score_model
 from fdtpu_torch.sampling import DiffusionSampler
-from fdtpu_torch.serve import export_sampler, load_exported
+from fdtpu_torch.serve import export_sampler, load_exported, make_sampling_fn
 
 REPO = Path(__file__).resolve().parents[1]
 L, C, B, STEPS = 16, 2, 4, 8
@@ -149,9 +149,20 @@ def test_graph_does_not_grow_with_the_step_count(tmp_path):
     {"level": "kv", "policy": "event", "tau_0": 10.0, "use_freqca": True},
 ], ids=["score-freqca", "kv-freqca-ring"])
 def test_a_level_not_exported_yet_raises(tmp_path, kwargs):
+    """FreqCa was the last level the exporter refused; its program (run
+    here eagerly, untraced) now gives the sampler's samples bitwise on the
+    same draws.  The traced programs are in tests/test_torch_export_freqca.py."""
     sampler = DiffusionSampler(tiny_model(), B, use_cache=True, cache_kwargs=kwargs)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        export_sampler(sampler, STEPS, tmp_path / "p.pt2")
+    program = make_sampling_fn(sampler, STEPS)
+    # An eager while_loop compiles its body; the other case's program left
+    # entries whose shapes dynamo would now mark dynamic.
+    torch._dynamo.reset()
+    g = torch.Generator().manual_seed(5)
+    draws = [torch.randn(shape, generator=g) for shape in program.input_shapes().values()]
+    with torch.no_grad():
+        got = program(*draws)
+    want = sampler.sample(B, STEPS, prior_noise=draws[0], step_noise=draws[1])
+    assert torch.equal(got, want)
     assert not (tmp_path / "p.pt2").exists()
 
 

@@ -54,7 +54,9 @@ def test_port_has_files():
     assert len(PORT_FILES) > 10
     names = {str(p.relative_to(REPO)) for p in PORT_FILES}
     assert {"fdtpu_torch/cli/train.py", "fdtpu_torch/cli/sample.py",
-            "fdtpu_torch/utils/config.py"} <= names
+            "fdtpu_torch/utils/config.py", "fdtpu_torch/dist/mesh.py",
+            "fdtpu_torch/dist/parallel.py", "fdtpu_torch/dist/tensor_parallel.py",
+            "fdtpu_torch/train/parallel.py", "fdtpu_torch/kernels/solve.py"} <= names
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(REPO)))

@@ -309,14 +309,17 @@ def test_error_budget_guard_warns_raises_or_stays_silent(models, guard):
 @pytest.mark.parametrize(
     "kwargs, match",
     [
-        (dict(mesh=object()), "distribution"),
-        (dict(mesh=object(), batches_per_call=2), "distribution"),
+        (dict(mesh=object()), "DeviceMesh"),
+        (dict(mesh=object(), batches_per_call=2), "DeviceMesh"),
     ],
 )
 def test_unported_options_raise_not_implemented(models, kwargs, match):
+    """Every option of the JAX sampler is ported; a ``mesh`` that is not a
+    torch ``DeviceMesh`` is a TypeError (the mesh itself is held to the JAX
+    sampler in tests/test_torch_dist.py)."""
     *_, net, ps = models
     model = psm.ScoreModel(config=net.config, network=net, scheduler=ps)
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(TypeError, match=match):
         psampler.DiffusionSampler(model, B, **kwargs)
 
 
