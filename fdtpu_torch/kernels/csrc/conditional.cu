@@ -20,11 +20,14 @@
 // cudaGraphAddNode after the capture's current dependencies, then
 // cudaStreamUpdateCaptureDependencies), so the capture goes on after the loop; the others add
 // nodes to a body graph: a child graph (a segment captured by PyTorch), an IF node, a setter
-// kernel.  Every function returns its cudaError_t; 0 is success.
+// kernel.  `fdtpu_cond_count_kernels` counts a graph's kernel nodes once, at capture, so the
+// host can count the kernels of a replay, which tells it nothing.  Every function returns its
+// cudaError_t; 0 is success.
 
 #include <cuda_runtime.h>
 
 #include <cstring>
+#include <vector>
 
 namespace {
 
@@ -69,6 +72,30 @@ cudaError_t add_kernel(cudaGraph_t graph, cudaGraphNode_t dep, void* func, void*
   params.kernelParams = args;
   params.extra = nullptr;
   return cudaGraphAddKernelNode(node, graph, dep ? &dep : nullptr, dep ? 1 : 0, &params);
+}
+
+// Adds the kernel nodes of `graph` and of its child graphs to `*kernels`.
+cudaError_t count_kernels(cudaGraph_t graph, unsigned long long* kernels) {
+  size_t n = 0;
+  cudaError_t err = cudaGraphGetNodes(graph, nullptr, &n);
+  if (err != cudaSuccess || n == 0) return err;
+  std::vector<cudaGraphNode_t> nodes(n);
+  err = cudaGraphGetNodes(graph, nodes.data(), &n);
+  if (err != cudaSuccess) return err;
+  for (size_t i = 0; i < n; ++i) {
+    cudaGraphNodeType type;
+    err = cudaGraphNodeGetType(nodes[i], &type);
+    if (err != cudaSuccess) return err;
+    if (type == cudaGraphNodeTypeKernel) {
+      ++*kernels;
+    } else if (type == cudaGraphNodeTypeGraph) {
+      cudaGraph_t child;
+      err = cudaGraphChildGraphNodeGetGraph(nodes[i], &child);
+      if (err == cudaSuccess) err = count_kernels(child, kernels);
+      if (err != cudaSuccess) return err;
+    }
+  }
+  return cudaSuccess;
 }
 
 }  // namespace
@@ -169,6 +196,37 @@ extern "C" int fdtpu_cond_add_while_setter(void* graph, void* dep, const void* c
                                      reinterpret_cast<void*>(set_while_handle), args, &node);
   if (err == cudaSuccess) *node_out = node;
   return (int)err;
+}
+
+// Counts the kernel nodes of `graph`, child graphs included; with `graph` null, of the graph
+// `stream` is capturing, as captured so far.  A graph with conditional nodes is not counted: the
+// runtime (CUDA 12.8 on the H100) answers cudaErrorUnknown when a WHILE body that holds IF nodes
+// is walked, so the host counts a step from its segments and its setters.  The count is a
+// diagnostic: a failure is returned and also cleared from the runtime's last error, so that no
+// later launch check reports it.
+extern "C" int fdtpu_cond_count_kernels(void* graph, void* stream, unsigned long long* out) {
+  cudaGraph_t g = static_cast<cudaGraph_t>(graph);
+  cudaError_t err = cudaSuccess;
+  if (g == nullptr) {
+    cudaStreamCaptureStatus status;
+    unsigned long long id = 0;
+    const cudaGraphNode_t* deps = nullptr;
+    const cudaGraphEdgeData* edges = nullptr;
+    size_t n_deps = 0;
+    err = cudaStreamGetCaptureInfo_v3(static_cast<cudaStream_t>(stream), &status, &id, &g, &deps,
+                                      &edges, &n_deps);
+    if (err == cudaSuccess && status != cudaStreamCaptureStatusActive) {
+      err = cudaErrorStreamCaptureImplicit;
+    }
+  }
+  unsigned long long kernels = 0;
+  if (err == cudaSuccess) err = count_kernels(g, &kernels);
+  if (err != cudaSuccess) {
+    cudaGetLastError();
+    return (int)err;
+  }
+  *out = kernels;
+  return 0;
 }
 
 extern "C" const char* fdtpu_cond_error_string(int err) {

@@ -42,7 +42,10 @@ the same numbers, the draws of the prologue in the order the eager loop
 makes them.  Between trajectories of one call the cross-batch preparation
 (:meth:`Chain.reset`, :meth:`Chain.mark_cold`) is enqueued on the device;
 the counters, branch runs and statistics are read once, at the end of a
-call (:meth:`Chain.read`).
+call (:meth:`Chain.read`).  A replay, the capture and the read are spans of
+:mod:`fdtpu_torch.utils.profiling` (``fdtpu.sample.*``; a replay's with its
+device interval), and the read adds the call's ``chain.*`` counters: the
+steps, each branch's runs and the graph's kernel nodes.
 """
 
 from __future__ import annotations
@@ -81,6 +84,7 @@ from fdtpu_torch.dist.parallel import Axis, ShardedGenerator, batch_first, draw
 from fdtpu_torch.models.score_models import ScoreNetwork, score_apply_cached
 from fdtpu_torch.sampling.sampler import _refresh, _skip, _token_mode_step
 from fdtpu_torch.utils.graphs import CudaGraph, launch_counts, set_counts, write_back
+from fdtpu_torch.utils.profiling import count, settle, span
 
 N_COUNTERS = len(COUNTERS)
 COLD = 1 + COUNTERS.index("cold")
@@ -161,7 +165,9 @@ class Chain:
                        if self.draws_probe and (resident or inject_probes) else None)
         self.trace = zeros(num_steps, 5) if guard_trace else None
 
-        self.clock = zeros(RUNS + len(self._functions()[1]), dtype=torch.int64)
+        branches = self._functions()[1]
+        self.clock = zeros(RUNS + len(branches), dtype=torch.int64)
+        self.run_counters = [f"chain.runs.{name}" for name, _ in branches]
         self.mode = zeros(dtype=torch.int64)  # the branch of the step
         self.sem = zeros(dtype=torch.int64)  # the step's mode (the JAX package's)
         self.modes = zeros(num_steps, dtype=torch.int64) if self.level else None
@@ -224,13 +230,16 @@ class Chain:
         ``stats``, what :func:`~fdtpu_torch.cache.e2crf.cache_stats` reads.
         On a card, the launches of this call's replays are added to the
         kernel wrappers' counts (the branches' capture counts times their
-        runs)."""
+        runs).  The replays' steps, each branch's runs and, on a card, their
+        kernel nodes go to the recorder's counters (``chain.*``,
+        :mod:`fdtpu_torch.utils.profiling`)."""
         steps = self.replays * self.num_steps
         if self.state is None:  # one branch, every step: nothing to read
             self._count_launches(steps, [steps])
             return None, None
         parts = [self.clock.double()] + ([stat_tensor(self.view())] if stats else [])
         values = torch.cat(parts).tolist()
+        settle()
         clock = values[:self.clock.shape[0]]
         self._count_launches(steps, [int(n) for n in clock[RUNS:]])
         state = with_counters(
@@ -239,9 +248,15 @@ class Chain:
         return state, (values[len(clock):] if stats else None)
 
     def _count_launches(self, steps: int, runs: list[int]) -> None:
+        if self.replays:
+            count("chain.steps", steps)
+            for name, n in zip(self.run_counters, runs):
+                count(name, n)
         if self.loop is not None:
-            added = self.loop.launches(self.replays, steps, runs)
+            *added, kernels = self.loop.launches(self.replays, steps, runs)
             set_counts(a + b for a, b in zip(launch_counts(), added))
+            if self.loop.counted:
+                count("chain.kernels", kernels)
         self.replays = 0
         self.clock[RUNS:].zero_()
 
@@ -258,39 +273,50 @@ class Chain:
         """One trajectory, its draws made up front: one graph replay on a
         card, a loop on the CPU."""
         if self.device.type != "cuda":
-            self._prologue()
-            for _ in range(self.num_steps):
-                self._step()
-            return
-        if self.loop is None:
-            self._capture()
-        self.loop.replay()
+            with span("fdtpu.sample.replay"):
+                self._prologue()
+                for _ in range(self.num_steps):
+                    self._step()
+        else:
+            if self.loop is None:
+                with span("fdtpu.sample.capture"):
+                    self._capture()
+            with span("fdtpu.sample.replay", device=True):
+                self.loop.replay()
         self.replays += 1
 
-    def _functions(self) -> tuple[Optional[Callable[[], None]], list[Callable[[], None]]]:
-        """The step's decision (None uncached) and its branches, made anew at
-        each call: a chain keeps no reference to itself, so dropping it frees
-        its graphs at once, not at a garbage collection that may fall inside
-        another graph's capture (where destroying a graph is refused)."""
+    def _functions(self) -> tuple[Optional[Callable[[], None]],
+                                  list[tuple[str, Callable[[], None]]]]:
+        """The step's decision (None uncached) and its named branches, made
+        anew at each call: a chain keeps no reference to itself, so dropping
+        it frees its graphs at once, not at a garbage collection that may
+        fall inside another graph's capture (where destroying a graph is
+        refused)."""
         if self.level == "score":
-            return self._score_pre, [self._skip, partial(self._refresh, False),
-                                     partial(self._refresh, True)]
+            return self._score_pre, [("skip", self._skip),
+                                     ("refresh", partial(self._refresh, False)),
+                                     ("cold_refresh", partial(self._refresh, True))]
         if self.level == "token":
-            return self._token_pre, [partial(self._token, mode, cold) for mode, cold in (
-                (TOKEN_FULL, False), (TOKEN_TOPK, False), (TOKEN_SKIP, False), (TOKEN_FULL, True))]
+            return self._token_pre, [(name, partial(self._token, mode, cold))
+                                     for name, mode, cold in (
+                                         ("full", TOKEN_FULL, False), ("topk", TOKEN_TOPK, False),
+                                         ("skip", TOKEN_SKIP, False),
+                                         ("cold_full", TOKEN_FULL, True))]
         if self.level == "kv":
             rings = (False, True) if self.cfg.use_freqca else (False,)
-            return self._kv_pre, [partial(self._kv, mode, ring) for ring in rings
-                                  for mode in (MODE_FULL, MODE_MIXED, MODE_CACHED)]
-        return None, [self._uncached]
+            return self._kv_pre, [("ring_" * ring + name, partial(self._kv, mode, ring))
+                                  for ring in rings for name, mode in (
+                                      ("full", MODE_FULL), ("mixed", MODE_MIXED),
+                                      ("cached", MODE_CACHED))]
+        return None, [("forward", self._uncached)]
 
     def _step(self) -> None:
         pre, branches = self._functions()
         if pre is None:
-            branches[0]()
+            branches[0][1]()
         else:
             pre()
-            branches[int(self.mode.item())]()
+            branches[int(self.mode.item())][1]()
         self._post()
 
     def _capture(self) -> None:
@@ -305,7 +331,8 @@ class Chain:
         saved = [(t, t.clone()) for t in statics if t is not None]
         gen_state = self.generator.get_state()
         counts = launch_counts()
-        pre, branches = self._functions()
+        pre, named = self._functions()
+        branches = [fn for _, fn in named]
         for fn in [self._prologue, *([pre] if pre else []), *branches, self._post]:
             CudaGraph.warm_up(fn)
         set_counts(counts)

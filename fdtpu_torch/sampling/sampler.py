@@ -74,6 +74,7 @@ from fdtpu_torch.models.score_models import (
 from fdtpu_torch.ops.fourier import frequency_decompose_fft, predict_hermite
 from fdtpu_torch.ops.fresca import apply_fresca_to_score
 from fdtpu_torch.utils.device import module_device
+from fdtpu_torch.utils.profiling import span
 
 
 def _check_cache_config(cfg: E2CRFConfig) -> None:
@@ -615,9 +616,18 @@ class DiffusionSampler:
             generator = torch.Generator(device=self.device).manual_seed(0)
 
         num_batches = max(1, num_samples // self.sample_batch_size)
-        if self.batches_per_call > 1 and num_batches > 1:
-            return self._sample_resident(num_batches, num_diffusion_steps, generator,
-                                         prior_noise, step_noise, probe_noise)
+        level = self.cache_config.level if self.use_cache else None
+        with span("fdtpu.sample", level=level, batches=num_batches, steps=num_diffusion_steps):
+            if self.batches_per_call > 1 and num_batches > 1:
+                return self._sample_resident(num_batches, num_diffusion_steps, generator,
+                                             prior_noise, step_noise, probe_noise)
+            return self._sample_eager(num_samples, num_batches, num_diffusion_steps, generator,
+                                      prior_noise, step_noise, probe_noise)
+
+    def _sample_eager(self, num_samples, num_batches, num_diffusion_steps, generator,
+                      prior_noise, step_noise, probe_noise) -> torch.Tensor:
+        """``batches_per_call`` 1, or a single batch: the eager loop, a
+        batch at a time."""
         all_samples, modes = [], []
         cache_state: Optional[CacheState] = None
 
@@ -626,26 +636,27 @@ class DiffusionSampler:
             return state.k.shape[1] if state.k.ndim > 1 else state.eps_hat.shape[0]
 
         for batch_idx in range(num_batches):
-            start = batch_idx * self.sample_batch_size
-            batch_size = min(num_samples - start, self.sample_batch_size)
-            rows = slice(start, start + batch_size)
-            x0 = self.sample_prior(
-                batch_size, generator, None if prior_noise is None else prior_noise[rows]
-            )
-            if self.use_cache and (
-                cache_state is None
-                or self.cache_config.reset_between_batches
-                or cache_batch(cache_state) != self._local(batch_size)
-            ):
-                cache_state = self._init_cache(batch_size)
-            elif self.use_cache and batch_idx > 0:
-                cache_state = _prep_cache_for_new_batch(cache_state)
-            chain, cache_state = self._eager_batch(
-                x0, cache_state, num_diffusion_steps, generator,
-                None if step_noise is None else self._rows(step_noise[:, rows], 1),
-                None if probe_noise is None else probe_noise[batch_idx])
-            all_samples.append(self._gather(chain.x))
-            modes.append(chain.modes)
+            with span("fdtpu.sample.batch", batch=batch_idx):
+                start = batch_idx * self.sample_batch_size
+                batch_size = min(num_samples - start, self.sample_batch_size)
+                rows = slice(start, start + batch_size)
+                x0 = self.sample_prior(
+                    batch_size, generator, None if prior_noise is None else prior_noise[rows]
+                )
+                if self.use_cache and (
+                    cache_state is None
+                    or self.cache_config.reset_between_batches
+                    or cache_batch(cache_state) != self._local(batch_size)
+                ):
+                    cache_state = self._init_cache(batch_size)
+                elif self.use_cache and batch_idx > 0:
+                    cache_state = _prep_cache_for_new_batch(cache_state)
+                chain, cache_state = self._eager_batch(
+                    x0, cache_state, num_diffusion_steps, generator,
+                    None if step_noise is None else self._rows(step_noise[:, rows], 1),
+                    None if probe_noise is None else probe_noise[batch_idx])
+                all_samples.append(self._gather(chain.x))
+                modes.append(chain.modes)
 
         self._finish(cache_state, modes, None)
         return torch.cat(all_samples, dim=0)
@@ -705,23 +716,27 @@ class DiffusionSampler:
         all_samples, modes = [], []
         for batch_idx in range(num_batches):
             rows = slice(batch_idx * batch, (batch_idx + 1) * batch)
-            chain.load(None if prior_noise is None else self.sample_prior(batch, None,
-                                                                         prior_noise[rows]),
-                       None if step_noise is None else self._rows(step_noise[:, rows], 1),
-                       None if probe_noise is None else probe_noise[batch_idx])
-            if self.use_cache:
-                if batch_idx == 0 or self.cache_config.reset_between_batches:
-                    chain.reset(fresh_state)
-                else:
-                    chain.mark_cold()
+            with span("fdtpu.sample.load", batch=batch_idx):
+                chain.load(None if prior_noise is None else self.sample_prior(batch, None,
+                                                                             prior_noise[rows]),
+                           None if step_noise is None else self._rows(step_noise[:, rows], 1),
+                           None if probe_noise is None else probe_noise[batch_idx])
+                if self.use_cache:
+                    if batch_idx == 0 or self.cache_config.reset_between_batches:
+                        chain.reset(fresh_state)
+                    else:
+                        chain.mark_cold()
             chain.run_resident()
-            all_samples.append(self._gather(chain.x.clone()))
-            if self.use_cache:
-                modes.append(chain.modes.clone())
+            with span("fdtpu.sample.gather", batch=batch_idx):
+                all_samples.append(self._gather(chain.x.clone()))
+                if self.use_cache:
+                    modes.append(chain.modes.clone())
         chain.end_call(generator)
-        cache_state, stats = chain.read(stats=True)
-        self._finish(cache_state, modes, stats)
-        return torch.cat(all_samples, dim=0)
+        with span("fdtpu.sample.read"):
+            cache_state, stats = chain.read(stats=True)
+        with span("fdtpu.sample.finish"):
+            self._finish(cache_state, modes, stats)
+            return torch.cat(all_samples, dim=0)
 
     def _check_error_budget(self) -> None:
         """Collapse detector after every cached ``sample()``: warn (or raise

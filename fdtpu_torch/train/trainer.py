@@ -34,6 +34,12 @@ resume snapshot at call boundaries.  Its trajectory differs from the host
 loop's (the device shuffle, the draws' order) and does not depend on
 ``epochs_per_call``.
 
+The loop's regions are spans of :mod:`fdtpu_torch.utils.profiling`
+(``fdtpu.fit`` and its ``fdtpu.fit.*`` children: epoch, batches, chunk,
+steps, train loss, resident, and the epoch end, everything after the loss
+read: validation, checkpoint, resume state, callbacks); they record nothing
+unless a recording is open or the profiler runs.
+
 ``mesh`` / ``use_mesh``: data parallelism over the mesh's ``data`` axis and
 tensor parallelism over its ``model`` axis, one process a device
 (:mod:`fdtpu_torch.train.parallel`), with every path above; only rank 0
@@ -64,6 +70,7 @@ from fdtpu_torch.train.state import ClippedAdamW, make_optimizer
 from fdtpu_torch.utils import wandb
 from fdtpu_torch.utils.device import module_device
 from fdtpu_torch.utils.graphs import CudaGraph, GraphRunner, launch_counts, set_counts
+from fdtpu_torch.utils.profiling import span
 
 
 def get_training_params(
@@ -190,13 +197,15 @@ class GraphedSteps:
             )
         chunk, losses, j = self.buffers[shape]
         n = len(batches)
-        chunk[:n].copy_(torch.from_numpy(np.stack(batches)))
-        j.zero_()
-        for _ in range(n):
-            self.runner.run((shape, self.optimizer.emits),
-                            lambda: self._step(chunk, losses, j))
-            self.optimizer.advance()
-        return losses[:n].clone()
+        with span("fdtpu.fit.chunk"):
+            chunk[:n].copy_(torch.from_numpy(np.stack(batches)))
+        with span("fdtpu.fit.steps"):
+            j.zero_()
+            for _ in range(n):
+                self.runner.run((shape, self.optimizer.emits),
+                                lambda: self._step(chunk, losses, j))
+                self.optimizer.advance()
+            return losses[:n].clone()
 
     def _step(self, chunk: torch.Tensor, losses: torch.Tensor, j: torch.Tensor) -> None:
         loss = _loss_and_update(self.network, self.optimizer, self.scheduler,
@@ -494,6 +503,10 @@ class Trainer:
     def fit(self, model: ScoreModel, datamodule: Any) -> ScoreModel:
         """Train a copy of ``model.network``; set ``model.network`` to the
         best-val parameters, frozen, and return ``model``."""
+        with span("fdtpu.fit", epochs=self.max_epochs):
+            return self._fit(model, datamodule)
+
+    def _fit(self, model: ScoreModel, datamodule: Any) -> ScoreModel:
         device = module_device(model.network)
         mesh = self._mesh = self._resolve_mesh(device)
         network = copy.deepcopy(model.network).train().requires_grad_(True)
@@ -567,48 +580,58 @@ class Trainer:
         per_update = self.accumulate_grad_batches
 
         for epoch in range(start_epoch, self.max_epochs):
-            t0 = time.perf_counter()
-            losses = []
-            batches = list(train_loader)
-            if mesh is not None:
-                batches = [mesh.rows(b) for b in batches]
-            for i, run in group_same_shape(batches, spc):
-                if graphed is None:
-                    step_losses = _loss_and_update(
-                        network, optimizer, scheduler, torch.from_numpy(batches[i]).to(device),
-                        generator, model.likelihood_weighting, mesh=mesh).reshape(1)
-                    optimizer.advance()
-                else:
-                    step_losses = graphed.run(batches[i:i + run])
-                losses.append(step_losses)
-                for off in range(run):
-                    global_step += 1
-                    if global_step % self.log_every_n_steps == 0:
-                        self._log({"step": global_step, "epoch": epoch,
-                                   "train/loss": float(step_losses[off]),
-                                   "lr": optimizer.schedule(global_step // per_update)})
-            train_loss = float(torch.cat(losses).mean())
+            with span("fdtpu.fit.epoch", epoch=epoch):
+                t0 = time.perf_counter()
+                losses = []
+                with span("fdtpu.fit.batches"):
+                    batches = list(train_loader)
+                    if mesh is not None:
+                        batches = [mesh.rows(b) for b in batches]
+                for i, run in group_same_shape(batches, spc):
+                    if graphed is None:
+                        with span("fdtpu.fit.chunk"):
+                            xb = torch.from_numpy(batches[i]).to(device)
+                        with span("fdtpu.fit.steps"):
+                            step_losses = _loss_and_update(
+                                network, optimizer, scheduler, xb, generator,
+                                model.likelihood_weighting, mesh=mesh).reshape(1)
+                            optimizer.advance()
+                    else:
+                        step_losses = graphed.run(batches[i:i + run])
+                    losses.append(step_losses)
+                    for off in range(run):
+                        global_step += 1
+                        if global_step % self.log_every_n_steps == 0:
+                            self._log({"step": global_step, "epoch": epoch,
+                                       "train/loss": float(step_losses[off]),
+                                       "lr": optimizer.schedule(global_step // per_update)})
+                with span("fdtpu.fit.train_loss"):
+                    train_loss = float(torch.cat(losses).mean())
 
-            with torch.no_grad():
-                val_losses = [
-                    sde_loss(network, scheduler, xb, generator=generator,
-                             likelihood_weighting=model.likelihood_weighting, train=False)
-                    if mesh is None else
-                    mesh.global_loss(_mesh_loss(network, scheduler, xb, generator,
-                                                model.likelihood_weighting, mesh, False))
-                    for xb in val_batches
-                ]
-            val_loss = (
-                float(np.average(torch.stack(val_losses).cpu().numpy(), weights=val_sizes))
-                if val_losses else float("nan")
-            )
-            dt = time.perf_counter() - t0
-            self._log_epoch(epoch, global_step, train_loss, val_loss, dt, optimizer)
-            if val_loss < self.best_val_loss:
-                self.best_val_loss = val_loss
-                best_state = {k: v.detach().clone() for k, v in network.state_dict().items()}
-                self._save_best(model, network, epoch, val_loss)
-            self._end_call(model, network, optimizer, generator, epoch, global_step)
+                with span("fdtpu.fit.epoch_end", epoch=epoch):
+                    with span("fdtpu.fit.validation"), torch.no_grad():
+                        val_losses = [
+                            sde_loss(network, scheduler, xb, generator=generator,
+                                     likelihood_weighting=model.likelihood_weighting,
+                                     train=False)
+                            if mesh is None else
+                            mesh.global_loss(_mesh_loss(network, scheduler, xb, generator,
+                                                        model.likelihood_weighting, mesh, False))
+                            for xb in val_batches
+                        ]
+                        val_loss = (
+                            float(np.average(torch.stack(val_losses).cpu().numpy(),
+                                             weights=val_sizes))
+                            if val_losses else float("nan")
+                        )
+                    dt = time.perf_counter() - t0
+                    self._log_epoch(epoch, global_step, train_loss, val_loss, dt, optimizer)
+                    if val_loss < self.best_val_loss:
+                        self.best_val_loss = val_loss
+                        best_state = {k: v.detach().clone()
+                                      for k, v in network.state_dict().items()}
+                        self._save_best(model, network, epoch, val_loss)
+                    self._end_call(model, network, optimizer, generator, epoch, global_step)
         return best_state
 
     def _fit_resident(self, model, datamodule, network, optimizer, generator, start_epoch,
@@ -627,25 +650,28 @@ class Trainer:
         while epoch < self.max_epochs:
             n = min(self.epochs_per_call, self.max_epochs - epoch)
             t0 = time.perf_counter()
-            step_losses, val_losses, best_val, best_epoch = loop.run(epoch, n)
+            with span("fdtpu.fit.resident", epoch=epoch, epochs=n):
+                step_losses, val_losses, best_val, best_epoch = loop.run(epoch, n)
             dt = time.perf_counter() - t0
-            for e in range(n):
-                for loss in step_losses[e]:
-                    global_step += 1
-                    if global_step % self.log_every_n_steps == 0:
-                        self._log({"step": global_step, "epoch": epoch + e,
-                                   "train/loss": float(loss),
-                                   "lr": optimizer.schedule(global_step // per_update)})
-                self._log_epoch(epoch + e, global_step, float(step_losses[e].mean()),
-                                float(val_losses[e]), dt / n, optimizer)
-            if best_val < self.best_val_loss:
-                self.best_val_loss = best_val
-                best_state = {k: v.detach().clone() for k, v in network.state_dict().items()}
-                # The optimizer's parameters are the network's trainable ones, in order.
-                best_state.update({n: b.clone() for n, b in zip(_trainable(network), loop.best)})
-                self._save_best(model, network, best_epoch, best_val, best_state)
-            epoch += n
-            self._end_call(model, network, optimizer, generator, epoch - 1, global_step)
+            with span("fdtpu.fit.epoch_end", epoch=epoch + n - 1):
+                for e in range(n):
+                    for loss in step_losses[e]:
+                        global_step += 1
+                        if global_step % self.log_every_n_steps == 0:
+                            self._log({"step": global_step, "epoch": epoch + e,
+                                       "train/loss": float(loss),
+                                       "lr": optimizer.schedule(global_step // per_update)})
+                    self._log_epoch(epoch + e, global_step, float(step_losses[e].mean()),
+                                    float(val_losses[e]), dt / n, optimizer)
+                if best_val < self.best_val_loss:
+                    self.best_val_loss = best_val
+                    best_state = {k: v.detach().clone() for k, v in network.state_dict().items()}
+                    # The optimizer's parameters are the network's trainable ones, in order.
+                    best_state.update({n: b.clone()
+                                       for n, b in zip(_trainable(network), loop.best)})
+                    self._save_best(model, network, best_epoch, best_val, best_state)
+                epoch += n
+                self._end_call(model, network, optimizer, generator, epoch - 1, global_step)
         return best_state
 
     def _log_epoch(self, epoch, global_step, train_loss, val_loss, dt, optimizer) -> None:
@@ -668,12 +694,13 @@ class Trainer:
 
     def _save_best(self, model, network, epoch: int, val_loss: float,
                    state: Optional[dict] = None) -> None:
-        network = self._full(model, network, state)
-        if not writes():
-            return
-        self.best_checkpoint = checkpoint.save_checkpoint(
-            self.run_dir, dataclasses.replace(model, network=network), epoch, val_loss)
-        wandb.maybe_log_model(self.best_checkpoint)
+        with span("fdtpu.fit.checkpoint", epoch=epoch):
+            network = self._full(model, network, state)
+            if not writes():
+                return
+            self.best_checkpoint = checkpoint.save_checkpoint(
+                self.run_dir, dataclasses.replace(model, network=network), epoch, val_loss)
+            wandb.maybe_log_model(self.best_checkpoint)
 
     def _end_call(self, model, network, optimizer, generator, epoch: int,
                   global_step: int) -> None:
@@ -681,20 +708,22 @@ class Trainer:
         alone on a mesh, with the full parameters)."""
         mesh = self._mesh
         if self.save_resume_state:
-            opt_state = optimizer.state_dict()
-            if mesh is not None:
-                opt_state = mesh.full_optimizer_state(opt_state, _trainable(network))
-            state = {"network": self._full(model, network).state_dict(),
-                     "optimizer": opt_state, "generator": generator.get_state()}
-            if writes():
-                checkpoint.save_train_state(self.run_dir, state, epoch=epoch,
-                                            global_step=global_step,
-                                            best_val_loss=self.best_val_loss)
+            with span("fdtpu.fit.resume_state", epoch=epoch):
+                opt_state = optimizer.state_dict()
+                if mesh is not None:
+                    opt_state = mesh.full_optimizer_state(opt_state, _trainable(network))
+                state = {"network": self._full(model, network).state_dict(),
+                         "optimizer": opt_state, "generator": generator.get_state()}
+                if writes():
+                    checkpoint.save_train_state(self.run_dir, state, epoch=epoch,
+                                                global_step=global_step,
+                                                best_val_loss=self.best_val_loss)
         if self.callbacks:
-            full = self._full(model, network)
-            if writes():
-                for callback in self.callbacks:
-                    callback.on_train_epoch_end(trainer=self, network=full, epoch=epoch)
+            with span("fdtpu.fit.callbacks", epoch=epoch):
+                full = self._full(model, network)
+                if writes():
+                    for callback in self.callbacks:
+                        callback.on_train_epoch_end(trainer=self, network=full, epoch=epoch)
 
     def _log(self, record: dict[str, Any]) -> None:
         if not writes():

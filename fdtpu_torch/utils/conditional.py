@@ -32,8 +32,11 @@ registered with the loop graph, whose replays advance them.
 
 Launch counts.  A replay does not tell the host which branches ran.  Each
 segment records the launches of the counted kernels (B1–B4) that its capture
-made; the caller multiplies them by how often each segment ran, a device
-count it reads once (:meth:`LoopGraph.launches`).
+made, and then its kernel nodes, counted once from the captured graph; the
+caller multiplies them by how often each segment ran, a device count it reads
+once (:meth:`LoopGraph.launches`).  A step adds the setter kernels.  Counting
+the nodes is a diagnostic: where the runtime cannot count them, a warning
+says so and :attr:`LoopGraph.counted` is False.
 
 A capture that fails raises; there is no eager retry.
 """
@@ -41,6 +44,7 @@ A capture that fails raises; there is no eager retry.
 from __future__ import annotations
 
 import ctypes
+import warnings
 from typing import Callable, Iterable, Optional, Sequence
 
 import torch
@@ -66,8 +70,9 @@ def _library() -> ctypes.CDLL:
         lib.fdtpu_cond_add_branch_setter.argtypes = [vp, vp, vp, p_u64, ctypes.c_int, p_vp]
         lib.fdtpu_cond_add_while_setter.argtypes = [vp, vp, vp, ctypes.c_longlong,
                                                     ctypes.c_ulonglong, p_vp]
+        lib.fdtpu_cond_count_kernels.argtypes = [vp, vp, p_u64]
         for name in ("begin_while", "handle", "add_if", "add_child", "add_branch_setter",
-                     "add_while_setter"):
+                     "add_while_setter", "count_kernels"):
             getattr(lib, f"fdtpu_cond_{name}").restype = ctypes.c_int
         lib.fdtpu_cond_error_string.argtypes = [ctypes.c_int]
         lib.fdtpu_cond_error_string.restype = ctypes.c_char_p
@@ -81,9 +86,25 @@ def _check(err: int, what: str) -> None:
         raise RuntimeError(f"conditional graph: {what} failed: {msg} (cudaError_t {err})")
 
 
+def _kernel_nodes(lib, graph: Optional[int], stream=None) -> Optional[int]:
+    """The kernel nodes of ``graph`` (None: of the graph ``stream`` is
+    capturing, so far); None, with a warning, where the runtime cannot count
+    them."""
+    n = ctypes.c_ulonglong()
+    err = lib.fdtpu_cond_count_kernels(graph, None if stream is None else stream.cuda_stream,
+                                       ctypes.byref(n))
+    if err != 0:
+        msg = lib.fdtpu_cond_error_string(err).decode()
+        warnings.warn(f"conditional graph: counting kernel nodes failed: {msg} "
+                      f"(cudaError_t {err}); the chain's kernels go uncounted", RuntimeWarning)
+        return None
+    return n.value
+
+
 class Segment:
     """A function of static tensors captured into a graph that only serves
-    as a child-graph node, with the counted launches its capture made."""
+    as a child-graph node; ``launched``: the counted launches its capture
+    made, then its kernel nodes (0 where they could not be counted)."""
 
     def __init__(self, fn: Callable[[], None], pool) -> None:
         self.graph = torch.cuda.CUDAGraph(keep_graph=True)
@@ -91,9 +112,12 @@ class Segment:
         try:
             with torch.cuda.graph(self.graph, pool=pool):
                 fn()
-            self.launched = tuple(a - b for a, b in zip(launch_counts(), before))
+            launched = tuple(a - b for a, b in zip(launch_counts(), before))
         finally:
             set_counts(before)
+        nodes = _kernel_nodes(_library(), self.raw)
+        self.counted = nodes is not None
+        self.launched = launched + (nodes or 0,)
 
     @property
     def raw(self) -> int:
@@ -129,10 +153,18 @@ class LoopGraph:
         try:
             with torch.cuda.graph(self.graph, pool=torch.cuda.graph_pool_handle()):
                 prologue()
-                self.prologue_launched = tuple(a - b for a, b in zip(launch_counts(), before))
+                launched = tuple(a - b for a, b in zip(launch_counts(), before))
+                nodes = _kernel_nodes(lib, None, torch.cuda.current_stream())
                 self._append_loop(lib, mode, clock, limit)
         finally:
             set_counts(before)
+        self.prologue_launched = launched + (nodes or 0,)
+        # The body's own kernels, every step: the WHILE setter, and the branch
+        # setter where there is a pre segment.
+        self.setters = (0,) * len(launched) + (1 + (self.pre is not None),)
+        #: Whether the last count of :meth:`launches` holds every kernel node.
+        self.counted = nodes is not None and all(
+            s.counted for s in [self.pre, self.post, *self.branches] if s is not None)
 
     def _append_loop(self, lib, mode: torch.Tensor, clock: torch.Tensor, limit: int) -> None:
         stream = torch.cuda.current_stream()
@@ -177,13 +209,14 @@ class LoopGraph:
         self.graph.replay()
 
     def launches(self, replays: int, steps: int, runs: Sequence[int]) -> tuple[int, ...]:
-        """The counted launches of ``replays`` replays that ran ``steps``
-        loop iterations in all, branch k ``runs[k]`` of them (the caller's
-        device counts, read once)."""
+        """The counted launches and then the kernel nodes of ``replays``
+        replays that ran ``steps`` loop iterations in all, branch k
+        ``runs[k]`` of them (the caller's device counts, read once)."""
         total = [replays * n for n in self.prologue_launched]
-        every_step = [self.post] + ([self.pre] if self.pre is not None else [])
+        every_step = [self.setters] + [s.launched for s in (self.pre, self.post) if s is not None]
         if self.pre is None:
             runs = [steps]
-        for seg, n in [(s, steps) for s in every_step] + list(zip(self.branches, runs)):
-            total = [a + n * b for a, b in zip(total, seg.launched)]
+        for counts, n in ([(c, steps) for c in every_step]
+                          + [(seg.launched, n) for seg, n in zip(self.branches, runs)]):
+            total = [a + n * b for a, b in zip(total, counts)]
         return tuple(total)

@@ -40,6 +40,7 @@ import torch
 
 from fdtpu_torch.kernels import attention as _mha
 from fdtpu_torch.kernels import blockdiag_attention as _bda
+from fdtpu_torch.utils.profiling import span
 
 # The launch counters of the kernel wrappers: B1, B2, B3's backward passes, B4.
 COUNTERS = ((_bda, "launches"), (_bda, "launches_bwd"), (_bda, "launches_trainable"),
@@ -114,8 +115,9 @@ class GraphRunner:
             return
         entry = self.graphs.get(key)
         if entry is None:
-            self.graph_type.warm_up(fn)
-            self.graphs[key] = self._capture(fn)
+            with span("fdtpu.graph.capture"):
+                self.graph_type.warm_up(fn)
+                self.graphs[key] = self._capture(fn)
             return
         graph, launched = entry
         graph.replay()

@@ -203,23 +203,6 @@ def test_benchmark_cli_is_the_jax_cli(tmp_path, monkeypatch):
 
 
 # ----------------------------------------------------------------- profiling
-def test_wall_clock_accumulates_sections():
-    clock = profiling.WallClock()
-    x = torch.ones(3)
-    with clock.section("a", result=x):
-        pass
-    with clock.section("a"):
-        pass
-    out = clock.time_fn("b", lambda v: {"y": [v * 2]}, x)
-    assert torch.equal(out["y"][0], x * 2)
-    summary = clock.summary()
-    assert set(summary) == {"a", "b"}
-    assert summary["a"]["count"] == 2 and summary["b"]["count"] == 1
-    assert all(s["total_s"] >= 0 and s["mean_ms"] >= 0 for s in summary.values())
-    clock.reset()
-    assert clock.summary() == {}
-
-
 def test_block_until_ready_passes_host_results_through(monkeypatch):
     synced = []
     monkeypatch.setattr(torch.cuda, "synchronize", synced.append)

@@ -842,6 +842,91 @@ def test_profiled_back_to_back_resident_calls(cuda, name):
             assert torch.equal(x, want)
 
 
+@pytest.mark.parametrize("name", ["uncached", "score"])
+def test_recorded_chain_counts_the_same_nodes_at_every_capture(cuda, name):
+    """Two samplers capture the same chain: their prologue, WHILE body and
+    branches hold the same kernel nodes, every segment launches kernels, and
+    a recorded call counts the same kernels a step."""
+    from fdtpu_torch.utils import profiling
+
+    kw = GRAPH_CHAINS[name][0] if name != "uncached" else None
+    per_step, loops = [], []
+    for _ in range(2):
+        sampler = DiffusionSampler(_graph_model(), 4, use_cache=kw is not None, cache_kwargs=kw,
+                                   batches_per_call=2)
+        draws = _draws(2, 30)
+        sampler.sample(8, 30, **draws)  # captures
+        with profiling.recording():
+            sampler.sample(8, 30, **draws)
+        counters = profiling.export()["counters"]
+        assert counters["chain.steps"] == 60
+        runs = sum(v for k, v in counters.items() if k.startswith("chain.runs."))
+        assert runs == 60
+        per_step.append(counters["chain.kernels"] / 60)
+        (chain,) = sampler._chains.values()
+        loop = chain.loop
+        segments = [seg for seg in [loop.pre, loop.post, *loop.branches] if seg]
+        assert loop.counted
+        loops.append((loop.prologue_launched, [seg.launched for seg in segments]))
+        assert all(seg.launched[-1] > 0 for seg in segments)
+        assert loop.prologue_launched[-1] > 0
+    assert per_step[0] == per_step[1] and per_step[0] > 0
+    assert loops[0] == loops[1]
+
+
+@pytest.mark.parametrize("name", ["uncached", "score"])
+def test_recorded_replays_time_the_device_with_no_added_synchronize(cuda, monkeypatch, name):
+    """Inside a recording, two resident calls make no synchronise and no
+    event wait of the recorder's; each replay's device interval is read
+    (at the chain's read, or at the recording's end) and is positive."""
+    from fdtpu_torch.utils import profiling
+
+    kw = GRAPH_CHAINS[name][0] if name != "uncached" else None
+    sampler = DiffusionSampler(_graph_model(), 4, use_cache=kw is not None, cache_kwargs=kw,
+                               batches_per_call=2)
+    draws = _draws(2, 30)
+    sampler.sample(8, 30, **draws)  # captures
+    torch.cuda.synchronize()
+    waits = []
+    with profiling.recording() as rec:
+        with monkeypatch.context() as mp:
+            for owner, attr in ((torch.cuda, "synchronize"), (torch.cuda.Event, "synchronize")):
+                real = getattr(owner, attr)
+                mp.setattr(owner, attr, lambda *a, real=real, attr=attr, **k:
+                           waits.append(attr) or real(*a, **k))
+            for _ in range(2):
+                sampler.sample(8, 30, **draws)
+            assert waits == []
+            if kw is not None:  # read at the chain's read
+                assert rec.pending == []
+    replays = [s for s in profiling.export()["spans"] if s["name"] == "fdtpu.sample.replay"]
+    assert len(replays) == 4
+    for s in replays:
+        assert s["device_end_ns"] > s["device_start_ns"] >= rec.base_ns
+
+
+def test_profiled_training_epoch_opens_the_spans_as_profiler_ranges(cuda, tmp_path):
+    """A fit profiled with CPU and CUDA activity, no recording open: the
+    trainer's spans are profiler ranges (the benchmark's reading of them is
+    ``portbench/tests/test_span_trace.py``'s)."""
+    from fdtpu_torch.data import SyntheticDatamodule
+    from fdtpu_torch.train import Trainer, get_training_params
+
+    dm = SyntheticDatamodule(tmp_path / "data", max_len=33, num_samples=90, batch_size=16,
+                             fourier_transform=True, standardize=True, random_seed=2)
+    dm.prepare_data()
+    dm.setup()
+    model = _graph_model(dropout=0.1, channels=1)
+    model.num_training_steps = get_training_params(dm, 2)["num_training_steps"]
+    trainer = Trainer(max_epochs=2, run_dir=tmp_path / "runs", run_id="p", seed=3)
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        trainer.fit(model, dm)
+    names = {e.name for e in prof.events()}
+    assert {"fdtpu.fit", "fdtpu.fit.epoch", "fdtpu.fit.steps", "fdtpu.fit.epoch_end",
+            "fdtpu.fit.validation", "fdtpu.fit.resume_state"} <= names
+
+
 # ------------------------------------------------------------- export
 @pytest.mark.parametrize("op", ["blockdiag_mha", "blockdiag_mha_bwd", "fused_mha"])
 def test_registered_operators_pass_opcheck_on_the_card(cuda, op):

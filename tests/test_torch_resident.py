@@ -40,7 +40,7 @@ from fdtpu_torch.cache import e2crf as pe
 from fdtpu_torch.diffusion import VPScheduler
 from fdtpu_torch.models import score_models as psm
 from fdtpu_torch.sampling import DiffusionSampler, resident
-from fdtpu_torch.utils import conditional, graphs
+from fdtpu_torch.utils import conditional, graphs, profiling
 from fdtpu_torch.utils.convert import load_jax_variables
 
 # ----------------------------------------------------- decisions, tensor form
@@ -343,20 +343,22 @@ def test_no_generator_draw_inside_the_loop(models, monkeypatch):
 
 def test_loop_graph_counts_each_branch_by_its_runs():
     """The launches a trajectory graph's replays made: the prologue's per
-    replay, ``pre`` and ``post`` per step, each branch per run."""
-    seg = lambda *n: types.SimpleNamespace(launched=n)  # noqa: E731
-    loop = types.SimpleNamespace(prologue_launched=(0, 0, 0, 1), pre=seg(0, 0, 0, 0),
-                                 post=seg(0, 0, 0, 0),
+    replay, ``pre`` and ``post`` per step, each branch per run (the kernel
+    nodes, counted last, are ``tests/test_torch_tracing.py``'s)."""
+    seg = lambda *n: types.SimpleNamespace(launched=n + (0,))  # noqa: E731
+    loop = types.SimpleNamespace(prologue_launched=(0, 0, 0, 1, 0), setters=(0,) * 5,
+                                 pre=seg(0, 0, 0, 0), post=seg(0, 0, 0, 0),
                                  branches=[seg(10, 0, 0, 0), seg(2, 0, 0, 10), seg(0, 0, 0, 0)])
     got = conditional.LoopGraph.launches(loop, 2, 100, [7, 40, 53])
-    assert got == (70 + 80, 0, 0, 2 + 400)
+    assert got == (70 + 80, 0, 0, 2 + 400, 0)
     loop.pre = None
-    assert conditional.LoopGraph.launches(loop, 1, 100, [5]) == (1000, 0, 0, 1)
+    assert conditional.LoopGraph.launches(loop, 1, 100, [5]) == (1000, 0, 0, 1, 0)
 
 
 def test_chain_read_adds_the_replays_launches_once(models, monkeypatch):
     """At the end of a call the chain reads its counters once and adds the
-    replays' launches (here a stand-in loop graph) to the kernels' counts."""
+    replays' launches (here a stand-in loop graph) to the kernels' counts,
+    and the steps, branch runs and kernel nodes to the recorder's counters."""
     _, pmodel = models
     for module, name in graphs.COUNTERS:
         monkeypatch.setattr(module, name, 0)
@@ -366,10 +368,15 @@ def test_chain_read_adds_the_replays_launches_once(models, monkeypatch):
     (chain,) = sampler._chains.values()
     seen = []
     chain.loop = types.SimpleNamespace(
-        launches=lambda replays, steps, runs: seen.append((replays, steps, runs)) or (1, 2, 3, 4))
+        launches=lambda replays, steps, runs: seen.append((replays, steps, runs))
+        or (1, 2, 3, 4, 212), counted=True)
     chain.replays = 2
     chain.clock[resident.RUNS:] = torch.tensor([3, 8, 1])
-    state, stats = chain.read(stats=True)
+    with profiling.recording():
+        state, stats = chain.read(stats=True)
+    assert profiling.export()["counters"] == {
+        "chain.steps": 12, "chain.runs.skip": 3, "chain.runs.refresh": 8,
+        "chain.runs.cold_refresh": 1, "chain.kernels": 212}
     assert seen == [(2, 2 * 6, [3, 8, 1])] and graphs.launch_counts() == (1, 2, 3, 4)
     assert int(chain.clock[resident.RUNS:].sum()) == 0 and chain.replays == 0
     assert len(stats) == 7 and state.step == sampler.last_cache_state.step == 12
