@@ -6,6 +6,7 @@ Usage, from the repository root, on a machine with one CUDA card and nvcc:
     python3 chip_smoke.py
     python3 chip_smoke.py --step-times   # only the eager and resident ms/step
                                          # of the uncached and score chains
+    python3 chip_smoke.py --chain-step   # only the score chain's step kernels
     python3 chip_smoke.py --export-window   # only the exported token program's
                                             # profile beside the eager loop's
     python3 chip_smoke.py --dist-tp   # only the dp 1 × tp 2 run ("dist tp")
@@ -24,6 +25,12 @@ Phases (any failure exits non-zero and prints no result):
    one-call PyTorch yardstick (``library_ms``, timed only) and the least time
    the card could take (``bound_ms``); then B3, the autograd Function over B1
    and B2, against autograd through the plain forward, and its device time;
+   the score chain's three step kernels (``chain_step``: pre, skip, post) at
+   the flagship's (128, 187, 1) against the chain's PyTorch segments they
+   replace (their plain versions) from the same states, bitwise, timed as the
+   chain runs them, a node of a captured graph, beside the segments' times
+   and their bytes' bound (their launches are the freq and graphs phases'
+   score chains', each checked against the chain's steps and cached steps);
    B1's and B2's float32 and B4's float32 and bfloat16 times at head_dim
    4..32 (which pipe binds), each beside its plain version's (where
    ``attention_impl="auto"`` crosses over).
@@ -233,6 +240,13 @@ DIST_TP_SAMPLES = 512
 # The cache-study CLIs' chains (configs/sample.yaml has 100 steps).
 CACHE_CLI_STEPS = 25
 STEP_TIME_CHAINS = ("uncached", "score")
+# The score level with neither a budget nor an interval: the cold refresh and
+# the calibration refresh, then every step a skip (``--step-times`` times the
+# skip step from it).
+SKIP_ONLY_KWARGS = dict(CACHE_KWARGS, R=10**9, tau_0=1e9, guard="off")
+# Launches of a step kernel timed a replay, and replays, in chain_step_phase.
+CHAIN_STEP_GRAPH_LAUNCHES = 100
+CHAIN_STEP_REPLAYS = 5
 # The exported program against the sampler on the same card: the same
 # functions on the same draws, so any difference past this is a fault.
 EXPORT_REL_TOL = 1e-5
@@ -877,13 +891,16 @@ def freq_options_phase(torch, bda, mha) -> dict:
     x0 = scheduler.prior_sampling((b_short, cfg.max_len, 1), noise=z[0].cuda())
     for name, (kwargs, options) in FREQ_CHAINS.items():
         level = kwargs["level"]
-        policy = "score_skip_decision" if level == "score" else "event_policy"
         runs = {}
         cpu_sched = VPScheduler(fourier_noise_scaling=True)
         for dev, network, sched in (("cuda", net, scheduler), ("cpu", net_cpu, cpu_sched),
                                     ("cpu-einsum", net_cpu_einsum, cpu_sched)):
-            modes, undo_modes = recording(
-                resident, policy, lambda out: int(out[0] if isinstance(out, tuple) else out))
+            # The score level's modes are what its decision wrote into the
+            # chain's ``modes``: on a card its step kernel takes the decision
+            # in place of ``score_skip_decision``.
+            modes, undo_modes = (recording(psampler, "_eager_chain", lambda out: out[0])
+                                 if level == "score" else
+                                 recording(resident, "event_policy", lambda out: int(out[0])))
             # The energy cutoff bin of each FreSca call (a device read a
             # step, here only).
             bins, undo_bins = recording(pfresca, "create_frequency_masks",
@@ -895,6 +912,8 @@ def freq_options_phase(torch, bda, mha) -> dict:
             finally:
                 undo_modes()
                 undo_bins()
+            if level == "score":
+                modes = modes[0].modes.tolist()
             runs[dev] = (x.cpu(), modes, bins, state)
         (x_gpu, m_gpu, bins_gpu, s_gpu), (x_cpu, m_cpu, bins_cpu, s_cpu) = runs["cuda"], runs["cpu"]
         diverged = [i for i, (a, b) in enumerate(zip(m_gpu, m_cpu)) if a != b]
@@ -960,6 +979,7 @@ def freq_options_phase(torch, bda, mha) -> dict:
         gen = torch.Generator(device="cuda").manual_seed(2)
         torch.cuda.synchronize()
         bda.launches = mha.launches = 0
+        _reset_step_counts()
         t0 = time.perf_counter()
         samples = sampler.sample(SAMPLE_BATCH, SHORT_CHAIN_STEPS, generator=gen)
         torch.cuda.synchronize()
@@ -974,10 +994,11 @@ def freq_options_phase(torch, bda, mha) -> dict:
               f"{name}: {b1} B1 launches for {stats['full_steps']} FULL steps x {layers} layers")
         check(b4 == layers * b4_steps, f"{name}: {b4} B4 launches for {b4_steps} steps x {layers}")
         check(b1 > 0, f"{name}: B1 never launched")
+        step_launches = _step_launches(name, kwargs, SHORT_CHAIN_STEPS, stats)
         state = sampler.last_cache_state
         chains[name] = dict(seconds=seconds, samples_per_s=SAMPLE_BATCH / seconds,
                             ms_per_step=1e3 * seconds / SHORT_CHAIN_STEPS, launches_b1=b1,
-                            launches_b4=b4, full_steps=stats["full_steps"],
+                            launches_b4=b4, **step_launches, full_steps=stats["full_steps"],
                             mixed_steps=stats["mixed_steps"], cached_steps=stats["cached_steps"],
                             hist_len=int(state.hist_len), cache_stats=stats)
         print(f"chain {name}", json.dumps(chains[name]), flush=True)
@@ -1051,6 +1072,7 @@ def graphs_phase(torch, bda, mha) -> tuple[dict, dict]:
             sampler = make()
             torch.cuda.synchronize()
             bda.launches = mha.launches = 0
+            _reset_step_counts()
             samples, first_call, captures = timed_sample(torch, sampler, num_steps)
             # The resident chain's first call captures its graph: its steps
             # are timed without the capture.
@@ -1070,12 +1092,14 @@ def graphs_phase(torch, bda, mha) -> tuple[dict, dict]:
                   f"graphs {name} x{per_call}: {b1} B1 launches for {full} full forwards")
             check(b4 == layers * b4_steps,
                   f"graphs {name} x{per_call}: {b4} B4 launches for {b4_steps} steps")
+            step_launches = _step_launches(f"graphs {name} x{per_call}", kwargs, steps, stats)
             if name in ("uncached", "score"):
                 series = idft(torch.from_numpy(samples.cpu().numpy() * std + mean).float())
                 check(bool(torch.isfinite(series).all()),
                       f"graphs {name}: de-standardized series not finite")
             run = dict(steps=num_steps, ms_per_step=1e3 * seconds / steps,
-                       samples_per_s=NUM_SAMPLES / seconds, launches_b1=b1, launches_b4=b4)
+                       samples_per_s=NUM_SAMPLES / seconds, launches_b1=b1, launches_b4=b4,
+                       **step_launches)
             if per_call > 1:
                 run.update(capture_seconds=sum(captures),
                            first_call_ms_per_step=1e3 * first_call / steps)
@@ -1136,6 +1160,124 @@ def graphs_phase(torch, bda, mha) -> tuple[dict, dict]:
     return results, first_batches
 
 
+def graph_ms(torch, fn, launches: int = CHAIN_STEP_GRAPH_LAUNCHES,
+             replays: int = CHAIN_STEP_REPLAYS, reset=None) -> float:
+    """Mean time of one call of ``fn`` as a node of a captured CUDA graph of
+    ``launches`` calls (as a chain's graph runs it), over ``replays`` replays;
+    ``reset`` runs before each replay, outside the timing."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            fn()
+    total = 0.0
+    for _ in range(replays):
+        if reset is not None:
+            reset()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        total += start.elapsed_time(end)
+    return total / (replays * launches)
+
+
+def chain_step_phase(torch) -> list[dict]:
+    """The score chain's step kernels (``fdtpu_torch/kernels/chain_step.py``)
+    on a flagship score chain's static tensors (B 128, T 187, C 1, T = 1000
+    steps, ``CACHE_KWARGS``) from a random state: each against the chain's
+    PyTorch segment it replaces, its plain version, from the same state
+    (every static tensor bitwise), then timed as the chain runs it, a node
+    of a captured graph (``graph_ms``), with its device time (profiler), the
+    segment's time eager and as a graph, and its bound: the bytes it moves
+    at 3.35 TB/s (a few dozen float operations an element bind nothing; pre
+    reads four counters and a run count and writes three int64s and the run
+    count, and reads four floats: 88 bytes).  The launches these timings
+    make are taken back off the counters."""
+    from fdtpu_torch.cache.e2crf import E2CRFConfig, init_cache_state
+    from fdtpu_torch.kernels import chain_step
+    from fdtpu_torch.sampling import resident
+    from fdtpu_torch.sampling.sampler import no_fresca
+
+    model = flagship_model(torch)
+    b, seq = SAMPLE_BATCH, FLAGSHIP["seq"]
+    cfg = E2CRFConfig(**CACHE_KWARGS)
+    chain = resident.Chain(model.network, model.scheduler, cfg, cfg.policy_params("cuda"),
+                           init_cache_state(cfg, b, seq, 1, "cuda"), b, NUM_STEPS, no_fresca,
+                           "cuda", resident=True)
+    check(chain.step_kernels, "chain_step: the flagship score chain did not engage its kernels")
+    c, pp = chain.tensors, chain.pp
+    g = torch.Generator(device="cuda").manual_seed(17)
+    statics = dict(x=chain.x, score=chain.score, clock=chain.clock, mode=chain.mode,
+                   sem=chain.sem, modes=chain.modes, done=chain.done, **c)
+
+    def load() -> None:
+        for t in (c["eps_hat"], c["eps_prev"], chain.x, chain.score, chain.noise):
+            t.copy_(torch.randn(t.shape, generator=g, device="cuda"))
+        chain.clock.zero_()
+        chain.clock[1:resident.RUNS] = torch.tensor([437, 380, 0, 9_724, 71_000, 7, 0, 430])
+        for name, value in (("drift_rate", 0.0021), ("err_acc", 0.61), ("eps_gap", 57.0),
+                            ("overrun", 1.3)):
+            c[name].fill_(value)
+        chain.sem.zero_()
+
+    def torch_post() -> None:
+        chain.step_kernels = False
+        try:
+            chain._post()
+        finally:
+            chain.step_kernels = True
+
+    n = b * seq
+    kernels = {
+        "score_pre": (chain_step.score_pre, chain._score_pre,
+                      (chain.clock, chain.mode, chain.sem, chain.modes, c["drift_rate"],
+                       c["err_acc"], pp.tau_0, c["overrun"], pp.R, cfg.auto_calibrate),
+                      9 * 8 + 4 * 4),
+        "score_skip": (chain_step.score_skip, chain._skip,
+                       (chain.clock, chain.ts, chain.G, c["eps_hat"], c["eps_prev"],
+                        c["eps_prev2"], c["eps_gap"], c["eps_gap2"], c["drift_rate"],
+                        c["err_acc"], chain.score, cfg.eps_order, chain.scheduler),
+                       3 * 4 * n + 4 * seq),
+        "score_post": (chain_step.score_post, torch_post,
+                       (chain.clock, chain.sem, chain.ts, chain.step_size, chain.G, chain.score,
+                        chain.noise, chain.x, chain.done, chain.scheduler, seq),
+                       4 * 4 * n + 4 * seq),
+    }
+    counts = (chain_step.launches_pre, chain_step.launches_skip, chain_step.launches_post)
+    results = []
+    for name, (kernel, plain, args, nbytes) in kernels.items():
+        load()
+        saved = {k: v.clone() for k, v in statics.items()}
+        plain()
+        want = {k: v.clone() for k, v in statics.items()}
+        for k, v in saved.items():
+            statics[k].copy_(v)
+        kernel(*args)
+        torch.cuda.synchronize()
+        err = max(float((statics[k].double() - want[k].double()).abs().max())
+                  if statics[k].numel() else 0.0 for k in want)
+        check(all(torch.equal(statics[k], want[k]) for k in want),
+              f"chain_step {name}: the kernel differs from the chain's segment by {err:.3g}")
+
+        def reset() -> None:
+            chain.clock[0] = 0
+        rec = dict(case=f"flagship_{name}", shape=[b, seq, 1], dtype="float32",
+                   max_abs_err=err,
+                   kernel_ms=graph_ms(torch, lambda: kernel(*args), reset=reset),
+                   device_ms=device_ms(torch, lambda: (kernel(*args), reset()), name),
+                   plain_ms=time_ms(torch, lambda: (plain(), reset())),
+                   plain_graph_ms=graph_ms(torch, plain, reset=reset),
+                   library_ms=None, bound_ms=1e3 * nbytes / PEAK_HBM_BYTES, bound_by="bytes")
+        print("kernel", json.dumps(rec), flush=True)
+        results.append(rec)
+    (chain_step.launches_pre, chain_step.launches_skip, chain_step.launches_post) = counts
+    return results
+
+
 def timed_sample(torch, sampler, num_steps: int) -> tuple:
     """``sampler.sample(NUM_SAMPLES, num_steps)`` from a seeded generator:
     the samples, the call's wall seconds and the seconds of each graph
@@ -1179,7 +1321,8 @@ def step_times(torch) -> dict:
     """The eager loop's (``batches_per_call=1``) and the resident chain's
     (2) ms/step of ``STEP_TIME_CHAINS`` at the flagship, T = 1000, 256
     samples in batches of 128 (the resident chain without its capture): the
-    steps that the kernels' dispatch lengthens.  ``python3 chip_smoke.py
+    steps that the kernels' dispatch lengthens.  Then the resident score
+    chain's split (:func:`skip_split`).  ``python3 chip_smoke.py
     --step-times`` runs only this, so that one call can time the parent's
     tree and this one in turns."""
     from fdtpu_torch.sampling import DiffusionSampler
@@ -1197,7 +1340,55 @@ def step_times(torch) -> dict:
             _, seconds, captures = timed_sample(torch, sampler, NUM_STEPS)
             out[f"{name} {'eager' if per_call == 1 else 'resident'}"] = (
                 1e3 * (seconds - sum(captures)) / steps)
+    out.update(skip_split(torch, model))
     print("step_times", json.dumps(out), flush=True)
+    return out
+
+
+def skip_split(torch, model) -> dict:
+    """Where a resident score trajectory's time goes (256 samples, batches of
+    128, T = 1000, a recorded call after the capturing one): ``chain_ms``,
+    the mean device interval of the call's replays (the
+    ``fdtpu.sample.replay`` spans' CUDA events), its refreshes and its
+    kernel nodes a step (``chain.kernels`` / ``chain.steps``), at
+    ``CACHE_KWARGS`` and at ``SKIP_ONLY_KWARGS`` (2 refreshes, then 998
+    skips); the skip step's time is the skip-only trajectory's less its two
+    refreshes at a forward's time (B 128, CUDA events), over its skips, and
+    its kernel nodes are counted from the captured segments."""
+    from fdtpu_torch.sampling import DiffusionSampler
+    from fdtpu_torch.utils import profiling
+
+    g = torch.Generator(device="cuda").manual_seed(4)
+    x = torch.randn((SAMPLE_BATCH, model.config.max_len, model.config.n_channels),
+                    generator=g, device="cuda")
+    t = torch.rand((SAMPLE_BATCH,), generator=g, device="cuda")
+    with torch.no_grad():
+        forward_ms = time_ms(torch, lambda: model.network(x, t))
+    out = {"forward_ms": forward_ms}
+    for name, kwargs in (("score", CACHE_KWARGS), ("score-skips", SKIP_ONLY_KWARGS)):
+        sampler = DiffusionSampler(model, SAMPLE_BATCH, use_cache=True, cache_kwargs=kwargs,
+                                   batches_per_call=2)
+        sampler.sample(NUM_SAMPLES, NUM_STEPS, generator=torch.Generator("cuda").manual_seed(2))
+        torch.cuda.synchronize()
+        with profiling.recording():
+            sampler.sample(NUM_SAMPLES, NUM_STEPS,
+                           generator=torch.Generator("cuda").manual_seed(3))
+        record = profiling.export()
+        replays = [s for s in record["spans"] if s["name"] == "fdtpu.sample.replay"]
+        counters = record["counters"]
+        chain_ms = sum(s["device_end_ns"] - s["device_start_ns"] for s in replays) / (
+            1e6 * len(replays))
+        refreshes = (counters["chain.runs.refresh"]
+                     + counters["chain.runs.cold_refresh"]) / len(replays)
+        out[f"{name} chain_ms"] = chain_ms
+        out[f"{name} refreshes"] = refreshes
+        out[f"{name} step_kernels"] = counters.get("chain.kernels", 0) / counters["chain.steps"]
+        if name == "score-skips":
+            out["skip_step_ms"] = (chain_ms - refreshes * forward_ms) / (NUM_STEPS - refreshes)
+            (chain,) = sampler._chains.values()
+            loop = chain.loop
+            out["skip_step_nodes"] = (loop.setters[-1] + loop.pre.launched[-1]
+                                      + loop.branches[0].launched[-1] + loop.post.launched[-1])
     return out
 
 
@@ -2042,6 +2233,29 @@ def _reset_counts(torch, bda, mha) -> None:
     bda.launches = bda.launches_bwd = bda.launches_trainable = mha.launches = 0
 
 
+def _reset_step_counts() -> None:
+    from fdtpu_torch.kernels import chain_step
+
+    chain_step.launches_pre = chain_step.launches_skip = chain_step.launches_post = 0
+
+
+def _step_launches(name: str, kwargs, steps: int, stats: dict) -> dict:
+    """The score chain's step kernels' launches since ``_reset_step_counts``,
+    checked: a chain at the score level with the Taylor predictor runs
+    ``pre`` and ``post`` once a step and ``skip`` once a cached step, and
+    every other chain none of them."""
+    from fdtpu_torch.kernels import chain_step
+
+    engaged = bool(kwargs) and kwargs["level"] == "score" and kwargs.get(
+        "eps_predictor", "taylor") == "taylor"
+    got = dict(pre=chain_step.launches_pre, skip=chain_step.launches_skip,
+               post=chain_step.launches_post)
+    want = (dict(pre=steps, skip=stats["cached_steps"], post=steps) if engaged
+            else dict(pre=0, skip=0, post=0))
+    check(got == want, f"{name}: step kernel launches {got}, expected {want} for {steps} steps")
+    return {f"launches_{k}": v for k, v in got.items()}
+
+
 def cli_phase(torch, bda, mha) -> dict:
     """The port's entry points on the card, as a user types them: the train
     CLI on the synthetic data at the flagship's full width (trainer
@@ -2728,7 +2942,7 @@ def main() -> int:
     try:
         from fdtpu_torch.kernels import attention as mha
         from fdtpu_torch.kernels import blockdiag_attention as bda
-        from fdtpu_torch.kernels import build
+        from fdtpu_torch.kernels import build, chain_step
         from fdtpu_torch.utils import conditional
     except ImportError as exc:
         print(f"chip_smoke: fdtpu_torch is not importable here ({exc})", file=sys.stderr)
@@ -2742,11 +2956,15 @@ def main() -> int:
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}", flush=True)
     t0 = time.perf_counter()
-    build.build([bda.SOURCE, bda.SOURCE_BWD, mha.SOURCE, conditional.SOURCE], verbose=True)
+    build.build([bda.SOURCE, bda.SOURCE_BWD, mha.SOURCE, conditional.SOURCE, chain_step.SOURCE],
+                verbose=True)
     print(f"build: {time.perf_counter() - t0:.1f} s", flush=True)
 
     if sys.argv[1:] == ["--step-times"]:
         step_times(torch)
+        return 0
+    if sys.argv[1:] == ["--chain-step"]:
+        chain_step_phase(torch)
         return 0
     if sys.argv[1:] == ["--export-window"]:
         export_window(torch)
@@ -2766,6 +2984,7 @@ def main() -> int:
     mha_results = timed("kernel_mha", mha_kernel_phase, torch, mha)
     bwd_results = timed("kernel_bwd", bwd_kernel_phase, torch, bda)
     trainable = timed("trainable", trainable_phase, torch, bda)
+    step_results = timed("chain_step", chain_step_phase, torch)
     timed("head_dim_sweep", head_dim_sweep, torch, bda, mha)
     timed("slice", slice_phase, torch, bda)
     levels = timed("levels", levels_phase, torch, bda, mha)
@@ -2829,6 +3048,18 @@ def main() -> int:
          "bound_ms": trainable["bound_ms"], "bound_by": trainable["bound_by"],
          "library_ms": trainable["library_ms"]},
     ]
+    for rec in step_results:
+        kernel = rec["case"].rsplit("_", 1)[1]
+        # The launches of the chains whose counts were checked (freq, graphs).
+        launches = sum(c.get(f"launches_{kernel}", 0) for c in level_chains)
+        records.append({"name": f"chain_step.{kernel}", "route": "cuda",
+                        "source": "fdtpu_torch/kernels/csrc/chain_step.cu",
+                        "replaces": "none: the score level's launch-bound reverse step",
+                        "launches": launches, "max_abs_err": rec["max_abs_err"],
+                        "ms": rec["kernel_ms"], "device_ms": rec["device_ms"],
+                        "plain_ms": rec["plain_ms"], "plain_graph_ms": rec["plain_graph_ms"],
+                        "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
+                        "library_ms": None})
     print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"kernels": records}), flush=True)

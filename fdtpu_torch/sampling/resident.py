@@ -18,6 +18,13 @@ count as functions of static tensors:
 * ``post``: FreSca, the Euler–Maruyama update, the counters
   (:func:`~fdtpu_torch.cache.e2crf.count_mode`) and the clock.
 
+On a card, at the score level with the Taylor predictor, ``pre``, the skip
+branch and ``post`` are one hand-written kernel each
+(:mod:`fdtpu_torch.kernels.chain_step`: the same arithmetic in the same
+order, so the same samples and decisions), FreSca where it is on staying
+the PyTorch call before ``post``'s kernel.  Every other chain, and every
+chain on the CPU, runs these segments as PyTorch ops.
+
 The counters live in ``clock``, an int64 device vector: ``[i, step,
 last_full_step, cold, recompute_count, cache_hit_count, full_steps,
 mixed_steps, cached_steps, runs of branch 0, …]``.
@@ -79,10 +86,11 @@ from fdtpu_torch.cache.e2crf import (
     token_policy,
     with_counters,
 )
-from fdtpu_torch.diffusion.sde import SDE
+from fdtpu_torch.diffusion.sde import SDE, noise_scaling_vector
 from fdtpu_torch.dist.parallel import Axis, ShardedGenerator, batch_first, draw
+from fdtpu_torch.kernels import chain_step
 from fdtpu_torch.models.score_models import ScoreNetwork, score_apply_cached
-from fdtpu_torch.sampling.sampler import _refresh, _skip, _token_mode_step
+from fdtpu_torch.sampling.sampler import _refresh, _skip, _token_mode_step, no_fresca
 from fdtpu_torch.utils.graphs import CudaGraph, launch_counts, set_counts, write_back
 from fdtpu_torch.utils.profiling import count, settle, span
 
@@ -142,6 +150,8 @@ class Chain:
         self.scheduler = scheduler
         self.cfg, self.pp, self.fresca = cache_cfg, pp, fresca
         self.level = None if cache_cfg is None else cache_cfg.level
+        self.step_kernels = (self.device.type == "cuda" and self.level == "score"
+                             and cache_cfg.eps_predictor == "taylor")
         self.num_steps, self.batch, self.max_len = num_steps, batch, mcfg.max_len
         self.inject_steps, self.inject_probes, self.draw_prior = (
             inject_steps, inject_probes, draw_prior)
@@ -172,6 +182,13 @@ class Chain:
         self.sem = zeros(dtype=torch.int64)  # the step's mode (the JAX package's)
         self.modes = zeros(num_steps, dtype=torch.int64) if self.level else None
         self.one = torch.ones((1,), dtype=torch.int64, device=self.device)
+        # The score level's step kernels (module docstring): their noise
+        # scaling and the post kernel's count of finished blocks.
+        if self.step_kernels:
+            self.G = (scheduler.G if scheduler.G is not None else
+                      noise_scaling_vector(mcfg.max_len, scheduler.fourier_noise_scaling,
+                                           self.device))
+            self.done = zeros(dtype=torch.int32)
         self.state, self.tensors = None, {}
         if state is not None:
             t = mcfg.max_len
@@ -293,6 +310,10 @@ class Chain:
         fall inside another graph's capture (where destroying a graph is
         refused)."""
         if self.level == "score":
+            if self.step_kernels:
+                return self._score_pre_kernel, [
+                    ("skip", self._skip_kernel), ("refresh", partial(self._refresh, False)),
+                    ("cold_refresh", partial(self._refresh, True))]
             return self._score_pre, [("skip", self._skip),
                                      ("refresh", partial(self._refresh, False)),
                                      ("cold_refresh", partial(self._refresh, True))]
@@ -387,6 +408,9 @@ class Chain:
 
     def _post(self) -> None:
         """FreSca, the Euler–Maruyama update, the counters, the clock."""
+        if self.step_kernels:
+            self._post_kernel()
+            return
         t, _ = self._now()
         x = self.scheduler.step(self.fresca(self.score, t), t, self.x, self._draw_noise(),
                                 self.step_size)
@@ -426,6 +450,27 @@ class Chain:
         _, std = self.scheduler.marginal_prob(self.x, t_batch)
         score, c = _skip(self.view().replace(cold=False), self.cfg, t, std, self._since())
         self._finish_branch(score, c)
+
+    def _score_pre_kernel(self) -> None:
+        c = self.tensors
+        chain_step.score_pre(self.clock, self.mode, self.sem, self.modes, c["drift_rate"],
+                             c["err_acc"], self.pp.tau_0, c["overrun"], self.pp.R,
+                             self.cfg.auto_calibrate)
+
+    def _skip_kernel(self) -> None:
+        c = self.tensors
+        chain_step.score_skip(self.clock, self.ts, self.G, c["eps_hat"], c["eps_prev"],
+                              c["eps_prev2"], c["eps_gap"], c["eps_gap2"], c["drift_rate"],
+                              c["err_acc"], self.score, self.cfg.eps_order, self.scheduler)
+
+    def _post_kernel(self) -> None:
+        score = self.score
+        if self.fresca is not no_fresca:
+            t, _ = self._now()
+            score = self.fresca(score, t).contiguous()
+        noise = self.noise if self.noise is not None else self._draw_noise()
+        chain_step.score_post(self.clock, self.sem, self.ts, self.step_size, self.G, score, noise,
+                              self.x, self.done, self.scheduler, self.max_len)
 
     def _token_pre(self) -> None:
         self.probe_now.copy_(self._draw_probe())

@@ -347,13 +347,19 @@ def _token_mode_step(network, c: CacheState, cfg: E2CRFConfig, pp: PolicyParams,
     return -eps_pred / stdc, c
 
 
+def no_fresca(score: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """The step's score transform with FreSca off: the score as it is."""
+    return score
+
+
 def _fresca(use_fresca: bool, low_scale, high_scale, cutoff_ratio: float, cutoff_strategy: str,
             num_steps: int, group: Group = None):
-    """Each step's score transform: FreSca with these settings, or none
-    (``group`` as in :func:`_refresh`)."""
+    """Each step's score transform: FreSca with these settings, or
+    :func:`no_fresca` (``group`` as in :func:`_refresh`)."""
+    if not use_fresca:
+        return no_fresca
+
     def fresca(score: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
-        if not use_fresca:
-            return score
         return apply_fresca_to_score(score, low_scale, high_scale, cutoff_ratio, cutoff_strategy,
                                      timestep=t, num_steps=num_steps, group=group)
 

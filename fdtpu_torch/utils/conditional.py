@@ -31,10 +31,11 @@ the prologue draws what the whole loop needs, with the generators
 registered with the loop graph, whose replays advance them.
 
 Launch counts.  A replay does not tell the host which branches ran.  Each
-segment records the launches of the counted kernels (B1–B4) that its capture
-made, and then its kernel nodes, counted once from the captured graph; the
-caller multiplies them by how often each segment ran, a device count it reads
-once (:meth:`LoopGraph.launches`).  A step adds the setter kernels.  Counting
+segment records the launches of the counted kernels (B1–B4 and the score
+chain's step kernels, :data:`~fdtpu_torch.utils.graphs.COUNTERS`) that its
+capture made, and then its kernel nodes, counted once from the captured
+graph; the caller multiplies them by how often each segment ran, a device
+count it reads once (:meth:`LoopGraph.launches`).  A step adds the setter kernels.  Counting
 the nodes is a diagnostic: where the runtime cannot count them, a warning
 says so and :attr:`LoopGraph.counted` is False.
 

@@ -40,11 +40,14 @@ import torch
 
 from fdtpu_torch.kernels import attention as _mha
 from fdtpu_torch.kernels import blockdiag_attention as _bda
+from fdtpu_torch.kernels import chain_step as _step
 from fdtpu_torch.utils.profiling import span
 
-# The launch counters of the kernel wrappers: B1, B2, B3's backward passes, B4.
+# The launch counters of the kernel wrappers: B1, B2, B3's backward passes,
+# B4, the score chain's step kernels.
 COUNTERS = ((_bda, "launches"), (_bda, "launches_bwd"), (_bda, "launches_trainable"),
-            (_mha, "launches"))
+            (_mha, "launches"), (_step, "launches_pre"), (_step, "launches_skip"),
+            (_step, "launches_post"))
 
 
 def launch_counts() -> tuple[int, ...]:

@@ -1072,3 +1072,149 @@ def test_mesh_trainer_at_world_size_one_equals_the_trainer(one_rank_world, tmp_p
         fits.append((trainer.fit(model, dm).network.state_dict(), trainer.best_val_loss))
     (p0, v0), (p1, v1) = fits
     assert v1 == v0 and all(torch.equal(p1[k], p0[k]) for k in p0)
+
+
+# ------------------------------------------------ the score chain's step kernels
+def _step_chain(kind="vp", **cache):
+    """A resident score-level chain of the small graph model on the card (4
+    rows of 33 × 2, 20 steps, R 10, τ₀ 0.3), its step kernels engaged."""
+    from fdtpu_torch.cache.e2crf import E2CRFConfig, init_cache_state
+    from fdtpu_torch.diffusion import VEScheduler
+    from fdtpu_torch.sampling import resident
+    from fdtpu_torch.sampling.sampler import no_fresca
+
+    model = _graph_model()
+    sched = (model.scheduler if kind == "vp" else VEScheduler(
+        fourier_noise_scaling=True, sigma_max=2.0).with_noise_scaling(33, "cuda"))
+    cfg = E2CRFConfig(level="score", R=10, tau_0=0.3, **cache)
+    chain = resident.Chain(model.network, sched, cfg, cfg.policy_params("cuda"),
+                           init_cache_state(cfg, 4, 33, 2, "cuda"), 4, 20, no_fresca, "cuda",
+                           resident=True)
+    assert chain.step_kernels
+    return chain
+
+
+@pytest.mark.parametrize("auto_calibrate", [False, True])
+@pytest.mark.parametrize("order", [0, 1, 2])
+@pytest.mark.parametrize("kind", ["vp", "ve"])
+def test_chain_step_kernels_equal_the_chains_segments(cuda, kind, order, auto_calibrate):
+    """Each of the three kernels from the same states as the chain's PyTorch
+    segment it replaces (the kernels' plain versions, run on the card with
+    the kernels off), over the boundary and random states of
+    ``tests/chain_step_states.py``, ``post`` after a skip and after a
+    refresh: every static tensor bitwise, one launch counted, a synchronise
+    after each launch."""
+    import numpy as np
+    from chain_step_states import load, states
+
+    from fdtpu_torch.kernels import chain_step
+
+    chain = _step_chain(kind, eps_order=order, auto_calibrate=auto_calibrate)
+    c, pp = chain.tensors, chain.pp
+    pre = (chain.clock, chain.mode, chain.sem, chain.modes, c["drift_rate"], c["err_acc"],
+           pp.tau_0, c["overrun"], pp.R, auto_calibrate)
+    skip = (chain.clock, chain.ts, chain.G, c["eps_hat"], c["eps_prev"], c["eps_prev2"],
+            c["eps_gap"], c["eps_gap2"], c["drift_rate"], c["err_acc"], chain.score, order,
+            chain.scheduler)
+    post = (chain.clock, chain.sem, chain.ts, chain.step_size, chain.G, chain.score, chain.noise,
+            chain.x, chain.done, chain.scheduler, 33)
+
+    def torch_post():
+        chain.step_kernels = False
+        try:
+            chain._post()
+        finally:
+            chain.step_kernels = True
+
+    segments = {"pre": (chain_step.score_pre, chain._score_pre, pre, (0,)),
+                "skip": (chain_step.score_skip, chain._skip, skip, (0,)),
+                "post": (chain_step.score_post, torch_post, post, (0, 1))}
+    statics = dict(x=chain.x, score=chain.score, clock=chain.clock, mode=chain.mode,
+                   sem=chain.sem, modes=chain.modes, done=chain.done, **c)
+    for seed, fields in enumerate(states(10, float(np.float32(0.3)))):
+        for name, (kernel, segment, args, sems) in segments.items():
+            for sem in sems:
+                results = []
+                for run in (segment, lambda: kernel(*args)):
+                    load(chain, fields, seed)
+                    chain.sem.fill_(sem)
+                    before = getattr(chain_step, f"launches_{name}")
+                    run()
+                    torch.cuda.synchronize()
+                    launched = getattr(chain_step, f"launches_{name}") - before
+                    results.append({k: v.clone() for k, v in statics.items()})
+                assert launched == 1
+                want, got = results
+                for k in want:
+                    assert torch.equal(got[k], want[k]), (name, seed, sem, k)
+
+
+def test_resident_score_chain_with_step_kernels_matches_the_cpu(cuda):
+    """A resident score chain (its steps the kernels on the card, PyTorch's
+    segments on the CPU), VE (see the cached-chain test above), ε̂ order 2,
+    injected draws: the same mode at every step, the same counters, the
+    samples at atol 1e-4."""
+    from fdtpu_torch.diffusion import VEScheduler
+    from fdtpu_torch.models import ScoreModel
+
+    kw = dict(level="score", R=6, tau_0=0.4, eps_order=2, guard="off")
+    draws = _draws(2, 40)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        base = _graph_model(device=dev)
+        model = ScoreModel(config=base.config, network=base.network, scheduler=VEScheduler(
+            fourier_noise_scaling=True, sigma_max=2.0).with_noise_scaling(33, dev))
+        sampler = DiffusionSampler(model, 4, use_cache=True, cache_kwargs=kw, batches_per_call=2)
+        x = sampler.sample(8, 40, **draws)
+        torch.cuda.synchronize()
+        (chain,) = sampler._chains.values()
+        assert chain.step_kernels == (dev == "cuda")
+        out[dev] = (x.cpu(), sampler.last_modes.cpu(), sampler.get_cache_stats())
+    (xc, mc, sc), (xh, mh, sh) = out["cuda"], out["cpu"]
+    first = (mc != mh).nonzero()
+    assert not len(first), f"modes differ first at (batch, step) {first[:1].tolist()}"
+    for key in ("current_step", "full_steps", "cached_steps", "recompute_count",
+                "cache_hit_count"):
+        assert sc[key] == sh[key], key
+    assert 0 < sc["cached_steps"] < 80
+    torch.testing.assert_close(xc, xh, rtol=0, atol=1e-4)
+
+
+def test_score_chain_skips_through_the_skip_kernel_in_five_nodes(cuda):
+    """The resident score chain with its step kernels and with its PyTorch
+    segments (engaged or not by hand), from the same draws: samples, modes
+    and statistics bitwise; with the kernels every skip went through the skip
+    kernel (its launches are ``chain.runs.skip``), every step through pre and
+    post, and a skipped step is 5 kernel nodes (pre, the branch setter, skip,
+    post, the WHILE setter)."""
+    from fdtpu_torch.kernels import chain_step
+    from fdtpu_torch.utils import profiling
+
+    kw, _ = GRAPH_CHAINS["score"]
+    draws = _draws(2, 30)
+    runs = {}
+    for kernels in (True, False):
+        sampler = DiffusionSampler(_graph_model(), 4, use_cache=True, cache_kwargs=kw,
+                                   batches_per_call=2)
+        chain = sampler._resident_chain(30, True, True, True)
+        chain.step_kernels = kernels
+        sampler.sample(8, 30, **draws)  # captures
+        before = (chain_step.launches_pre, chain_step.launches_skip, chain_step.launches_post)
+        with profiling.recording():
+            x = sampler.sample(8, 30, **draws)
+        torch.cuda.synchronize()
+        launched = tuple(a - b for a, b in zip(
+            (chain_step.launches_pre, chain_step.launches_skip, chain_step.launches_post),
+            before))
+        loop = chain.loop
+        skip_nodes = (loop.setters[-1] + loop.pre.launched[-1] + loop.branches[0].launched[-1]
+                      + loop.post.launched[-1])
+        runs[kernels] = (x, sampler.last_modes, sampler.get_cache_stats(),
+                         profiling.export()["counters"], launched, skip_nodes)
+    x1, m1, s1, counters, launched, nodes = runs[True]
+    x0, m0, s0, _, launched0, nodes0 = runs[False]
+    assert counters["chain.steps"] == 60 and counters["chain.runs.skip"] > 0
+    assert launched == (60, counters["chain.runs.skip"], 60) and launched0 == (0, 0, 0)
+    assert nodes == 5 and nodes0 > 8, (nodes, nodes0)
+    assert torch.equal(m1, m0) and s1 == s0
+    assert torch.equal(x1, x0), f"samples differ by {float((x1 - x0).abs().max()):.3g}"
