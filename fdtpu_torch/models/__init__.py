@@ -1,4 +1,5 @@
 from fdtpu_torch.models.score_models import (
+    DiTScoreNetwork,
     LSTMScoreNetwork,
     MLPScoreNetwork,
     ScoreModel,
@@ -17,6 +18,7 @@ __all__ = [
     "MODE_CACHED",
     "MODE_FULL",
     "MODE_MIXED",
+    "DiTScoreNetwork",
     "LSTMScoreNetwork",
     "MLPScoreNetwork",
     "ScoreModel",

@@ -1,5 +1,5 @@
 """Score networks: the transformer, MLP and LSTM backbones (port of
-``fdtpu/models/score_models.py``).
+``fdtpu/models/score_models.py``), and DiT's (:class:`DiTScoreNetwork`).
 
 Transformer pipeline: Linear(C→D) embed → learnable positional encoding
 (max-norm √d) → Gaussian-Fourier time encoding → post-norm encoder stack →
@@ -9,7 +9,9 @@ layers, 12 heads, ≈3.2M parameters).  The MLP backbone
 encoding and runs residual Linear→ReLU→Dropout→Linear→Dropout blocks; the
 LSTM backbone (:class:`LSTMScoreNetwork`) runs residual one-directional LSTM
 layers over the tokens with no positional encoding and no dropout, as the
-JAX package's.
+JAX package's.  The DiT backbone (:mod:`fdtpu_torch.models.dit`) runs
+adaLN-Zero blocks conditioned on the time embedding over the tokens, with
+fixed sin-cos positions; it has no counterpart in the JAX package.
 
 The JAX package's ``variables`` pytree becomes the network module;
 ``init_score_model`` builds it from an explicit ``torch.Generator`` on the
@@ -23,7 +25,7 @@ token level's full refreshes) and :func:`score_apply_topk` (token level),
 take the K/V store ``(k, v)``, each ``(num_layers, B, T, H, Dh)`` in the
 compute dtype, and update it in place; the JAX package's ``lax.switch`` over
 the mode becomes a branch on a host int.  They apply to the transformer only,
-as in the JAX package.
+as in the JAX package (DiT's blocks have no cached modes).
 """
 
 from __future__ import annotations
@@ -38,6 +40,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from fdtpu_torch.kernels.blockdiag_attention import MAX_HEAD_DIM
+from fdtpu_torch.models.dit import DiTBlock, FinalLayer, TimestepEmbedder, _xavier_, sincos_table
 from fdtpu_torch.models.encodings import GaussianFourierProjection, PositionalEncoding
 from fdtpu_torch.models.initializers import linear_init_, max_norm_rows
 from fdtpu_torch.models.transformer import EncoderLayer, KVStore, _dropout
@@ -56,7 +59,7 @@ class ScoreModelConfig:
     dim_feedforward: int = 2048
     dropout: float = 0.1
     ln_eps: float = 1e-5
-    backbone: str = "transformer"  # "transformer" | "mlp" | "lstm"
+    backbone: str = "transformer"  # "transformer" | "mlp" | "lstm" | "dit"
     d_mlp: int = 1024
     gfp_scale: float = 30.0
     # "einsum" | "blockdiag" (the fused Hopper kernel) | "blockdiag_noshift"
@@ -93,8 +96,8 @@ def resolve_attention_impl(impl: str, head_dim: int = 0, device_type: str = "cud
 
 
 class _Network(nn.Module):
-    """What the three backbones share: the input check, the unembedding and
-    the compute-dtype copy."""
+    """What the backbones share: the input check, the unembedding (all but
+    DiT's) and the compute-dtype copy."""
 
     config: ScoreModelConfig
 
@@ -213,6 +216,49 @@ class ScoreNetwork(_Network):
         for layer, k, v in zip(self.backbone, *kv_cache):
             h = layer.forward_topk(h, (k, v), idx)
         return self._unembed(h, out_dtype)
+
+
+class DiTScoreNetwork(_Network):
+    """DiT-style score network (:mod:`fdtpu_torch.models.dit`): Linear(C→D)
+    embedding of each frequency bin (DiT's patch embedding at patch size 1)
+    plus the fixed sin-cos positions, the time embedding as the only
+    conditioning (no class label), adaLN-Zero blocks, and the modulated final
+    layer to C channels (no learned variance).  No dropout: DiT has none, and
+    ``config.dropout`` is not read, as the LSTM backbone does.  It has no
+    cached forwards: :func:`score_apply_cached` and :func:`score_apply_topk`
+    refuse it."""
+
+    def __init__(self, config: ScoreModelConfig, attention_impl: str) -> None:
+        super().__init__()
+        cfg = self.config = config
+        self.embedder = nn.utils.skip_init(nn.Linear, cfg.n_channels, cfg.d_model)
+        self.register_buffer("pos_table", sincos_table(cfg.max_len, cfg.d_model),
+                             persistent=False)
+        self.time_embedder = TimestepEmbedder(cfg.d_model)
+        self.backbone = nn.ModuleList(
+            DiTBlock(cfg.d_model, cfg.n_head, cfg.dim_feedforward, cfg.ln_eps, attention_impl)
+            for _ in range(cfg.num_layers))
+        self.final_layer = FinalLayer(cfg.d_model, cfg.n_channels, cfg.ln_eps)
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
+        """DiT's ``initialize_weights``: the modulations and the final layer
+        zero, so a fresh network's output is exactly 0."""
+        _xavier_(self.embedder, generator)
+        self.time_embedder.reset_parameters(generator)
+        for block in self.backbone:
+            block.reset_parameters(generator)
+        self.final_layer.reset_parameters()
+
+    def forward(self, x: torch.Tensor, timesteps: torch.Tensor, train: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        self._check_input(x)
+        h = x.to(self.config._cdtype)
+        h = F.linear(h, self.embedder.weight.to(h.dtype), self.embedder.bias.to(h.dtype))
+        h = h + self.pos_table.to(h.dtype)
+        c = self.time_embedder(timesteps, h.dtype)
+        for block in self.backbone:
+            h = block(h, c)
+        return self.final_layer(h, c).to(x.dtype)
 
 
 class MLPBlock(nn.Module):
@@ -347,8 +393,11 @@ def init_score_model(
         net = MLPScoreNetwork(cfg)
     elif cfg.backbone == "lstm":
         net = LSTMScoreNetwork(cfg)
+    elif cfg.backbone == "dit":
+        impl = resolve_attention_impl(cfg.attention_impl, cfg.head_dim, dev.type)
+        net = DiTScoreNetwork(cfg, impl)
     else:
-        raise ValueError(f"backbone must be transformer, mlp or lstm, got {cfg.backbone!r}")
+        raise ValueError(f"backbone must be transformer, mlp, lstm or dit, got {cfg.backbone!r}")
     net.reset_parameters(generator)
     return net.to(dev).eval().requires_grad_(False)
 

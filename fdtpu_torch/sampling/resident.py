@@ -119,7 +119,9 @@ class Chain:
     made whole from the shared generator and cut to the rank's rows, and
     the cache's reductions over the batch are over the whole batch
     (:mod:`fdtpu_torch.dist.parallel`), so the collectives run inside the
-    steps (and the captured graph)."""
+    steps (and the captured graph).  At the token level ``rows`` keeps the
+    rows each TOPK step takes ((steps, budget) int64, −1 at the other steps),
+    cleared at the start of each trajectory."""
 
     def __init__(
         self,
@@ -174,6 +176,9 @@ class Chain:
         self.probes = (zeros(num_steps, mcfg.max_len)
                        if self.draws_probe and (resident or inject_probes) else None)
         self.trace = zeros(num_steps, 5) if guard_trace else None
+        self.rows = (torch.full((num_steps, min(int(cache_cfg.token_budget), mcfg.max_len)), -1,
+                                dtype=torch.int64, device=self.device)
+                     if self.level == "token" else None)
 
         branches = self._functions()[1]
         self.clock = zeros(RUNS + len(branches), dtype=torch.int64)
@@ -282,6 +287,8 @@ class Chain:
     def run_eager(self) -> None:
         """One trajectory from ``x``, a host read of the branch each step."""
         self.clock[0].fill_(0)
+        if self.rows is not None:
+            self.rows.fill_(-1)
         for _ in range(self.num_steps):
             self._step()
 
@@ -346,7 +353,7 @@ class Chain:
         from fdtpu_torch.utils.conditional import LoopGraph
 
         statics = [self.x, self.score, self.clock, self.mode, self.sem, self.noise,
-                   self.probes, self.modes, *self.tensors.values()]
+                   self.probes, self.modes, self.rows, *self.tensors.values()]
         if self.state is not None:
             statics += [self.mask, self.count, self.w_drift, self.mean_drift, self.probe_now]
         saved = [(t, t.clone()) for t in statics if t is not None]
@@ -367,6 +374,8 @@ class Chain:
     def _prologue(self) -> None:
         """The trajectory's draws, in the eager loop's order."""
         self.clock[0].fill_(0)
+        if self.rows is not None:
+            self.rows.fill_(-1)
         if self.draw_prior:
             self.x.copy_(self.scheduler.prior_sampling(self.x.shape, self.batch_draws,
                                                        self.device))
@@ -487,8 +496,12 @@ class Chain:
         c = self.view()
         score, c = _token_mode_step(self.network, c.replace(cold=cold), self.cfg, self.pp,
                                     self.x, t_batch, std, self.low_bonus, self.probe_now, mode,
-                                    self.w_drift, self.mean_drift, c.step, self.group)
+                                    self.w_drift, self.mean_drift, c.step, self.group,
+                                    self._record_rows)
         self._finish_branch(score, c)
+
+    def _record_rows(self, idx: torch.Tensor) -> None:
+        self.rows.index_copy_(0, self.clock[0:1], idx[None])
 
     def _kv_pre(self) -> None:
         c = self.view()

@@ -46,7 +46,7 @@ from __future__ import annotations
 
 import dataclasses
 import warnings
-from typing import Any, Optional, Union
+from typing import Any, Callable, Optional, Union
 
 import torch
 
@@ -258,12 +258,13 @@ def _topk_rows(priority: torch.Tensor, budget: int) -> torch.Tensor:
 
 def _token_mode_step(network, c: CacheState, cfg: E2CRFConfig, pp: PolicyParams, x, t_batch,
                      std, low_bonus, probe_u, mode, w_drift, mean_drift, step,
-                     group: Group = None):
+                     group: Group = None, on_rows: Optional[Callable] = None):
     """One step of the token level (``token_level_body``) in ``mode``: FULL,
     TOPK or SKIP, with the policy's ``w_drift`` and ``mean_drift`` and the
     step's probe uniforms ``probe_u`` (T,), read at TOPK; ``step`` is the
-    global step, a 0-d int64 tensor; ``group`` as in :func:`_refresh`.  The
-    counters are left to the chain."""
+    global step, a 0-d int64 tensor; ``group`` as in :func:`_refresh`.
+    ``on_rows``, if given, is handed the TOPK step's rows (``budget``,) int64,
+    highest priority first.  The counters are left to the chain."""
     max_len = x.shape[1]
     stdc = std[..., None]
     budget = min(int(cfg.token_budget), max_len)
@@ -311,6 +312,8 @@ def _token_mode_step(network, c: CacheState, cfg: E2CRFConfig, pp: PolicyParams,
         acc_err = w_drift * (age + 1.0)
         probe_bonus = torch.where(probe_u < pp.random_probe_ratio, 1e9, 0.0)
         idx = _topk_rows(acc_err + low_bonus + probe_bonus, budget)
+        if on_rows is not None:
+            on_rows(idx)
         out_rows, kv = score_apply_topk(network, x, t_batch, (c.k, c.v), idx)
         eps_rows = -std.index_select(1, idx)[..., None] * out_rows
         age_rows = age.index_select(0, idx)
@@ -458,7 +461,9 @@ class DiffusionSampler:
     The values are those of ``batches_per_call=1``, the eager per-step loop
     (a device read a step).  After a call,
     ``last_modes`` holds each batch's mode at every step ((batches, steps),
-    on the device; None uncached).
+    on the device; None uncached), and at the token level ``last_rows`` the
+    rows each TOPK step took ((batches, steps, budget) int64 on the device,
+    highest priority first, −1 at the other steps; None at other levels).
 
     ``mesh`` (a :class:`~torch.distributed.device_mesh.DeviceMesh` with a
     ``data`` axis, :func:`fdtpu_torch.dist.create_mesh`; every rank of it
@@ -514,6 +519,7 @@ class DiffusionSampler:
             self._check_level_settings(cfg)
         self.last_cache_state: Optional[CacheState] = None
         self.last_modes: Optional[torch.Tensor] = None
+        self.last_rows: Optional[torch.Tensor] = None
         self._last_stats: Optional[dict] = None
         self.use_fresca = use_fresca
         self.fresca_low_scale = fresca_low_scale
@@ -634,7 +640,7 @@ class DiffusionSampler:
                       prior_noise, step_noise, probe_noise) -> torch.Tensor:
         """``batches_per_call`` 1, or a single batch: the eager loop, a
         batch at a time."""
-        all_samples, modes = [], []
+        all_samples, modes, rows_taken = [], [], []
         cache_state: Optional[CacheState] = None
 
         def cache_batch(state: CacheState) -> int:
@@ -663,8 +669,9 @@ class DiffusionSampler:
                     None if probe_noise is None else probe_noise[batch_idx])
                 all_samples.append(self._gather(chain.x))
                 modes.append(chain.modes)
+                rows_taken.append(chain.rows)
 
-        self._finish(cache_state, modes, None)
+        self._finish(cache_state, modes, None, rows_taken)
         return torch.cat(all_samples, dim=0)
 
     def _fresca_fn(self, num_steps: int):
@@ -681,9 +688,11 @@ class DiffusionSampler:
         """The whole batch from this rank's rows."""
         return gather_batch(x, None if self.shard is None else self.shard.group)
 
-    def _finish(self, state: Optional[CacheState], modes: list, stats: Optional[list]) -> None:
+    def _finish(self, state: Optional[CacheState], modes: list, stats: Optional[list],
+                rows: list) -> None:
         self.last_cache_state = state
         self.last_modes = torch.stack(modes) if self.use_cache and modes else None
+        self.last_rows = torch.stack(rows) if rows and rows[0] is not None else None
         self._last_stats = (cache_stats(state, stats, self._shards())
                             if state is not None and stats is not None else None)
         self._check_error_budget()
@@ -719,7 +728,7 @@ class DiffusionSampler:
                                      probe_noise is not None)
         fresh_state = self._init_cache(batch)
         chain.begin_call(generator)
-        all_samples, modes = [], []
+        all_samples, modes, rows_taken = [], [], []
         for batch_idx in range(num_batches):
             rows = slice(batch_idx * batch, (batch_idx + 1) * batch)
             with span("fdtpu.sample.load", batch=batch_idx):
@@ -737,11 +746,13 @@ class DiffusionSampler:
                 all_samples.append(self._gather(chain.x.clone()))
                 if self.use_cache:
                     modes.append(chain.modes.clone())
+                if chain.rows is not None:
+                    rows_taken.append(chain.rows.clone())
         chain.end_call(generator)
         with span("fdtpu.sample.read"):
             cache_state, stats = chain.read(stats=True)
         with span("fdtpu.sample.finish"):
-            self._finish(cache_state, modes, stats)
+            self._finish(cache_state, modes, stats, rows_taken)
             return torch.cat(all_samples, dim=0)
 
     def _check_error_budget(self) -> None:

@@ -16,6 +16,10 @@
 * While ``torch.profiler`` runs, each span also opens
   ``torch.profiler.record_function(name)``, so the program's spans sit on
   the profiler's clock beside the device trace (recording on or off).
+* :func:`profiler_range` is a profiler range alone, for regions inside a
+  network's forward (the DiT block's ``fdtpu.dit.*``): open only while
+  ``torch.profiler`` runs, outside a graph capture and outside tracing by
+  ``torch.compile`` or ``torch.export``; never a span of a recording.
 * :func:`trace` records the enclosed region with ``torch.profiler`` and
   writes a Chrome trace; :func:`block_until_ready` waits for a result's
   devices.
@@ -172,6 +176,22 @@ def span(name: str, device: bool = False, **attrs: Any):
     if _recorder is None and not _profiler_enabled():
         return NO_SPAN
     return _Span(name, device, attrs)
+
+
+_NO_RANGE = contextlib.nullcontext()
+
+
+def profiler_range(name: str):
+    """``torch.profiler.record_function(name)`` while the profiler runs and
+    the current stream is not capturing a graph (a capture would hold no
+    host range and a replay would open none); a shared no-op context
+    otherwise, and under ``torch.compile`` or ``torch.export``, which trace
+    the forward.  It adds no span or counter to a recording."""
+    if torch.compiler.is_compiling() or not _profiler_enabled():
+        return _NO_RANGE
+    if torch.cuda.is_available() and torch.cuda.is_current_stream_capturing():
+        return _NO_RANGE
+    return torch.profiler.record_function(name)
 
 
 def count(name: str, n: int) -> None:

@@ -165,14 +165,14 @@ def test_resolve_attention_impl():
 
 
 def test_unported_backbones_raise_not_implemented():
-    """Every backbone of the JAX package is ported; a backbone it does not
-    have is refused by name."""
+    """Every backbone of the JAX package is ported, and the port adds DiT's;
+    a backbone neither has is refused by name."""
     for backbone, cls in (("transformer", psm.ScoreNetwork), ("mlp", psm.MLPScoreNetwork),
-                          ("lstm", psm.LSTMScoreNetwork)):
+                          ("lstm", psm.LSTMScoreNetwork), ("dit", psm.DiTScoreNetwork)):
         cfg = psm.ScoreModelConfig(**SMALL, max_len=16, backbone=backbone)
         assert type(psm.init_score_model(cfg, device="cpu")) is cls
     cfg = psm.ScoreModelConfig(**SMALL, max_len=16, backbone="gru")
-    with pytest.raises(ValueError, match="transformer, mlp or lstm"):
+    with pytest.raises(ValueError, match="transformer, mlp, lstm or dit"):
         psm.init_score_model(cfg, device="cpu")
 
 

@@ -213,6 +213,27 @@ def test_spans_are_profiler_ranges_with_recording_off():
     assert "fdtpu.inner" in names and "fdtpu.outer" not in names
 
 
+@pytest.mark.parametrize("blocked_by", [None, "capture", "compile"])
+def test_profiler_ranges_open_only_under_the_profiler_outside_capture_and_tracing(
+        monkeypatch, blocked_by):
+    """``profiler_range`` (the DiT block's ``fdtpu.dit.*``): a profiler range
+    while the profiler runs, the shared no-op while a stream captures or
+    ``torch.compile`` traces, and never a span of a recording."""
+    assert profiling.profiler_range("fdtpu.dit.mlp") is profiling._NO_RANGE
+    with recording():
+        if blocked_by == "capture":
+            monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+            monkeypatch.setattr(torch.cuda, "is_current_stream_capturing", lambda: True)
+        elif blocked_by == "compile":
+            monkeypatch.setattr(torch.compiler, "is_compiling", lambda: True)
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+            with profiling.profiler_range("fdtpu.dit.mlp"):
+                torch.ones(3).sum()
+    names = {e.name for e in prof.events()}
+    assert ("fdtpu.dit.mlp" in names) == (blocked_by is None)
+    assert export()["spans"] == []
+
+
 def test_loop_graph_counts_kernel_nodes_by_segment_runs():
     """A trajectory graph's kernel nodes, the last of its counts: the
     prologue's a replay, the WHILE body's (pre, post, setters) a step, each
