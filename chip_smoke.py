@@ -7,6 +7,7 @@ Usage, from the repository root, on a machine with one CUDA card and nvcc:
     python3 chip_smoke.py --step-times   # only the eager and resident ms/step
                                          # of the uncached and score chains
     python3 chip_smoke.py --chain-step   # only the score chain's step kernels
+    python3 chip_smoke.py --ffn   # only the FFN kernel (F1) against its plain version
     python3 chip_smoke.py --export-window   # only the exported token program's
                                             # profile beside the eager loop's
     python3 chip_smoke.py --dist-tp   # only the dp 1 × tp 2 run ("dist tp")
@@ -15,7 +16,7 @@ Phases (any failure exits non-zero and prints no result):
 
 1. Header: the card's name and power limit (nvidia-smi), torch and CUDA
    versions; builds the CUDA sources of ``fdtpu_torch/kernels/csrc`` (B1,
-   B2, B4 and the conditional-node helper), one ``nvcc`` per source, in
+   B2, B4, F1 and the conditional-node helper), one ``nvcc`` per source, in
    parallel.
 2. Kernels: each hand-written kernel against its plain PyTorch version on the
    card, at the main path's shapes (B1 at the serving batch, B2 at the
@@ -31,6 +32,12 @@ Phases (any failure exits non-zero and prints no result):
    chain runs them, a node of a captured graph, beside the segments' times
    and their bytes' bound (their launches are the freq and graphs phases'
    score chains', each checked against the chain's steps and cached steps);
+   the encoder layer's FFN tail (F1, ``ffn_block``) on a flagship layer's
+   weights at the flagship's full forward (128 × 187 rows), droughts365's
+   (128 × 365) and the token level's TOPK rows (128 × 24) against its plain
+   version (relative L2 at most ``FFN_REL_TOL``, two launches bitwise), with
+   its time, the plain version's and the FLOP bound (its launches on the main
+   path are every later phase's: the chains' forwards without a gradient);
    B1's and B2's float32 and B4's float32 and bfloat16 times at head_dim
    4..32 (which pipe binds), each beside its plain version's (where
    ``attention_impl="auto"`` crosses over).
@@ -257,6 +264,12 @@ EVAL_BATCHES_PER_CALL = 2
 # configs/metrics/default.yaml with cli/sample.py's random_seed.
 METRICS_SEED = 42
 SW_DIRECTIONS = 1000
+# F1 against its plain version (float32 sums in another order than cuBLAS's;
+# the largest reading on the H100 is 1.6e-7, PERF.md §6).
+FFN_REL_TOL = 1e-6
+# F1's cases: rows of the flagship's full forward, droughts365's and the
+# token level's TOPK forward (24 rows a series).
+FFN_ROWS = {"flagship": 128 * 187, "droughts365": 128 * 365, "topk": 128 * 24}
 # B4 in bfloat16 against the plain version of the same bfloat16 inputs: the
 # limit past rtol 2^-7, four times the largest reading on the H100 (1.95e-3,
 # PERF.md §6).
@@ -809,6 +822,7 @@ def levels_phase(torch, bda, mha) -> dict:
         gen = torch.Generator(device="cuda").manual_seed(2)
         torch.cuda.synchronize()
         bda.launches = mha.launches = 0
+        _reset_ffn_count()
         t0 = time.perf_counter()
         samples = sampler.sample(num_samples, num_steps, generator=gen)
         torch.cuda.synchronize()
@@ -826,8 +840,10 @@ def levels_phase(torch, bda, mha) -> dict:
               f"{name}: {b1} B1 launches for {stats['full_steps']} FULL steps x {layers} layers")
         check(b4 == layers * b4_steps, f"{name}: {b4} B4 launches for {b4_steps} steps x {layers}")
         check(b4 > 0, f"{name}: B4 never launched")
+        f1 = _ffn_launches(name, layers, stats["full_steps"] + b4_steps)
         chains[name] = dict(seconds=seconds, samples_per_s=num_samples / seconds,
                             ms_per_step=1e3 * seconds / steps, launches_b1=b1, launches_b4=b4,
+                            launches_f1=f1,
                             full_steps=stats["full_steps"], mixed_steps=stats["mixed_steps"],
                             cached_steps=stats["cached_steps"], cache_stats=stats)
         print(f"chain {name}", json.dumps(chains[name]), flush=True)
@@ -980,6 +996,7 @@ def freq_options_phase(torch, bda, mha) -> dict:
         torch.cuda.synchronize()
         bda.launches = mha.launches = 0
         _reset_step_counts()
+        _reset_ffn_count()
         t0 = time.perf_counter()
         samples = sampler.sample(SAMPLE_BATCH, SHORT_CHAIN_STEPS, generator=gen)
         torch.cuda.synchronize()
@@ -995,10 +1012,12 @@ def freq_options_phase(torch, bda, mha) -> dict:
         check(b4 == layers * b4_steps, f"{name}: {b4} B4 launches for {b4_steps} steps x {layers}")
         check(b1 > 0, f"{name}: B1 never launched")
         step_launches = _step_launches(name, kwargs, SHORT_CHAIN_STEPS, stats)
+        f1 = _ffn_launches(name, layers, stats["full_steps"] + b4_steps)
         state = sampler.last_cache_state
         chains[name] = dict(seconds=seconds, samples_per_s=SAMPLE_BATCH / seconds,
                             ms_per_step=1e3 * seconds / SHORT_CHAIN_STEPS, launches_b1=b1,
-                            launches_b4=b4, **step_launches, full_steps=stats["full_steps"],
+                            launches_b4=b4, launches_f1=f1, **step_launches,
+                            full_steps=stats["full_steps"],
                             mixed_steps=stats["mixed_steps"], cached_steps=stats["cached_steps"],
                             hist_len=int(state.hist_len), cache_stats=stats)
         print(f"chain {name}", json.dumps(chains[name]), flush=True)
@@ -1073,6 +1092,7 @@ def graphs_phase(torch, bda, mha) -> tuple[dict, dict]:
             torch.cuda.synchronize()
             bda.launches = mha.launches = 0
             _reset_step_counts()
+            _reset_ffn_count()
             samples, first_call, captures = timed_sample(torch, sampler, num_steps)
             # The resident chain's first call captures its graph: its steps
             # are timed without the capture.
@@ -1093,13 +1113,14 @@ def graphs_phase(torch, bda, mha) -> tuple[dict, dict]:
             check(b4 == layers * b4_steps,
                   f"graphs {name} x{per_call}: {b4} B4 launches for {b4_steps} steps")
             step_launches = _step_launches(f"graphs {name} x{per_call}", kwargs, steps, stats)
+            f1 = _ffn_launches(f"graphs {name} x{per_call}", layers, full + b4_steps)
             if name in ("uncached", "score"):
                 series = idft(torch.from_numpy(samples.cpu().numpy() * std + mean).float())
                 check(bool(torch.isfinite(series).all()),
                       f"graphs {name}: de-standardized series not finite")
             run = dict(steps=num_steps, ms_per_step=1e3 * seconds / steps,
                        samples_per_s=NUM_SAMPLES / seconds, launches_b1=b1, launches_b4=b4,
-                       **step_launches)
+                       launches_f1=f1, **step_launches)
             if per_call > 1:
                 run.update(capture_seconds=sum(captures),
                            first_call_ms_per_step=1e3 * first_call / steps)
@@ -1278,6 +1299,59 @@ def chain_step_phase(torch) -> list[dict]:
     return results
 
 
+def ffn_kernel_phase(torch) -> list[dict]:
+    """F1 (``fdtpu_torch/kernels/ffn.py``) on a flagship layer's weights
+    (``EncoderLayer(72, 12, 2048)``, torch's init from a seed, norm2's scale
+    and shift moved off 1 and 0 so that the epilogue's are tested) against
+    its plain version at ``FFN_ROWS``, inputs LayerNorm'd as norm1's output
+    is: relative L2 and max abs error, two launches bitwise, the kernel's
+    time, the plain version's and the bound (4·M·D·F FLOP at 67 TFLOP/s
+    against x, out and the weights moved once at 3.35 TB/s)."""
+    from fdtpu_torch.kernels import ffn
+    from fdtpu_torch.models.transformer import EncoderLayer
+
+    layer = EncoderLayer(72, 12, 2048)
+    layer.reset_parameters(torch.Generator().manual_seed(19))
+    with torch.no_grad():
+        g = torch.Generator().manual_seed(20)
+        layer.norm2.weight.add_(0.1 * torch.randn(72, generator=g))
+        layer.norm2.bias.add_(0.1 * torch.randn(72, generator=g))
+    layer = layer.cuda()
+    args = (layer.linear1.weight, layer.linear1.bias, layer.linear2.weight, layer.linear2.bias,
+            layer.norm2.weight, layer.norm2.bias, layer.norm2.eps)
+    d, f = layer.linear1.weight.shape[1], layer.linear1.weight.shape[0]
+    g = torch.Generator(device="cuda").manual_seed(19)
+    results = []
+    with torch.no_grad():
+        for name, m in FFN_ROWS.items():
+            x = ffn.layer_norm(torch.randn((m, d), generator=g, device="cuda"),
+                               layer.norm1.weight, layer.norm1.bias, layer.norm1.eps)
+            out = ffn.ffn_block_cuda(x, *args)
+            again = ffn.ffn_block_cuda(x, *args)
+            torch.cuda.synchronize()
+            plain = ffn.ffn_block_plain(x, *args)
+            rel = float((out - plain).norm() / plain.norm())
+            check(bool(torch.isfinite(out).all()), f"ffn {name}: kernel output not finite")
+            check(rel <= FFN_REL_TOL, f"ffn {name}: relative L2 {rel:.3g} > {FFN_REL_TOL}")
+            check(torch.equal(out, again), f"ffn {name}: two launches differ")
+            flops = 4 * m * d * f
+            n_bytes = 4 * (2 * m * d + 2 * f * d + f + 3 * d)
+            t_ops, t_bytes = flops / PEAK_FP32_FLOPS, n_bytes / PEAK_HBM_BYTES
+            kernel_ms = time_ms(torch, lambda: ffn.ffn_block_cuda(x, *args))
+            rec = dict(case=f"{name}_f32", shape=[m, d, f], dtype="float32",
+                       splits=ffn.split_count(m, d, f, x.device.index or 0),
+                       max_abs_err=float((out - plain).abs().max()), rel_l2=rel,
+                       kernel_ms=kernel_ms, tflops=flops / kernel_ms / 1e9,
+                       device_ms=device_ms(torch, lambda: ffn.ffn_block_cuda(x, *args),
+                                           "ffn_block"),
+                       plain_ms=time_ms(torch, lambda: ffn.ffn_block_plain(x, *args)),
+                       library_ms=None, bound_ms=1e3 * max(t_ops, t_bytes),
+                       bound_by="operations" if t_ops >= t_bytes else "bytes")
+            print("kernel_ffn", json.dumps(rec), flush=True)
+            results.append(rec)
+    return results
+
+
 def timed_sample(torch, sampler, num_steps: int) -> tuple:
     """``sampler.sample(NUM_SAMPLES, num_steps)`` from a seeded generator:
     the samples, the call's wall seconds and the seconds of each graph
@@ -1424,6 +1498,7 @@ def export_phase(torch, bda, mha, first_batches: dict) -> dict:
             load_s = time.perf_counter() - t0
             torch.cuda.synchronize()
             bda.launches = mha.launches = 0
+            _reset_ffn_count()
             t0 = time.perf_counter()
             got = fn(torch.Generator("cuda").manual_seed(2))
             torch.cuda.synchronize()
@@ -1432,9 +1507,11 @@ def export_phase(torch, bda, mha, first_batches: dict) -> dict:
             # Score level: 1 a refresh; token level: 0 FULL, 1 TOPK.
             full = NUM_STEPS if modes is None else int((modes == int(name == "score")).sum())
             topk = int((modes == 1).sum()) if name == "token" else 0
+            f1 = _ffn_launches(f"export {name}", layers, full + topk)
             line = dict(export_s=export_s, artifact_bytes=path.stat().st_size, load_s=load_s,
                         run_s=run_s, ms_per_step=1e3 * run_s / NUM_STEPS,
-                        launches_b1=b1, launches_b4=b4, full_forwards=full, topk_steps=topk,
+                        launches_b1=b1, launches_b4=b4, launches_f1=f1, full_forwards=full,
+                        topk_steps=topk,
                         max_abs_diff=float((got - want).abs().max()),
                         rel_err=rel_err(got, want), bitwise_equal=bool(torch.equal(got, want)),
                         draws=[d["name"] for d in meta["draws"]])
@@ -1489,6 +1566,7 @@ def export_freqca(torch, bda, mha, model, name: str, tmp: Path) -> dict:
     for _ in range(2):  # the first run's time includes the program's first call
         torch.cuda.synchronize()
         bda.launches = mha.launches = 0
+        _reset_ffn_count()
         t0 = time.perf_counter()
         got = fn(torch.Generator("cuda").manual_seed(2))
         torch.cuda.synchronize()
@@ -1496,9 +1574,11 @@ def export_freqca(torch, bda, mha, model, name: str, tmp: Path) -> dict:
     first_s, run_s = runs
     b1, b4 = bda.launches, mha.launches
     b4_steps = stats["mixed_steps"] + stats["cached_steps"] if kwargs["level"] == "kv" else 0
+    f1 = _ffn_launches(f"export {name}", layers, stats["full_steps"] + b4_steps)
     line = dict(steps=steps, export_s=export_s, artifact_bytes=path.stat().st_size,
                 load_s=load_s, first_run_s=first_s, run_s=run_s, ms_per_step=1e3 * run_s / steps,
                 sampler_ms_per_step=1e3 * sampler_s / steps, launches_b1=b1, launches_b4=b4,
+                launches_f1=f1,
                 full_steps=stats["full_steps"], b4_steps=b4_steps, ring_entries=ring,
                 skipped_ratio=stats["steps_skipped_ratio"],
                 max_abs_diff=float((got - want).abs().max()),
@@ -1532,7 +1612,7 @@ def dist_phase(torch, bda, mha) -> dict:
     from fdtpu_torch.dist import create_mesh
     from fdtpu_torch.sampling import DiffusionSampler
 
-    out = {"launches": dict(b1=0, b2=0, b3=0, b4=0)}
+    out = {"launches": dict(b1=0, b2=0, b3=0, b4=0, f1=0)}
     with tempfile.TemporaryDirectory() as tmp:
         # A one-process NCCL world (the machine has one card), through a file
         # store: every collective of the mesh runs, on one rank.
@@ -1546,6 +1626,8 @@ def dist_phase(torch, bda, mha) -> dict:
                 dist.all_reduce(torch.zeros(1, device="cuda"), group=mesh.get_group(axis))
             torch.cuda.synchronize()
             model = flagship_model(torch)
+            layers = model.config.num_layers
+            steps = SHORT_CHAIN_STEPS * (NUM_SAMPLES // SAMPLE_BATCH)
             for name in DIST_CHAINS:
                 kwargs, options = GRAPH_CHAINS[name]
                 runs = {}
@@ -1556,26 +1638,33 @@ def dist_phase(torch, bda, mha) -> dict:
                                                mesh=on, **options)
                     torch.cuda.synchronize()
                     bda.launches = mha.launches = 0
+                    _reset_ffn_count()
                     samples, seconds, captures = timed_sample(torch, sampler, SHORT_CHAIN_STEPS)
+                    stats = sampler.get_cache_stats()
+                    # The sampler keeps the model axis off the layers, so
+                    # every forward takes F1, with and without the mesh.
+                    full = stats["full_steps"] if kwargs else steps
+                    b4_steps = (stats["mixed_steps"] + stats["cached_steps"]
+                                if kwargs and kwargs["level"] == "kv" else 0)
+                    f1 = _ffn_launches(f"dist {name} {label}", layers, full + b4_steps)
                     runs[label] = (samples, seconds - sum(captures), sum(captures),
-                                   (bda.launches, mha.launches), sampler.last_modes,
-                                   sampler.get_cache_stats())
+                                   (bda.launches, mha.launches, f1), sampler.last_modes, stats)
                 ref, ref_s, _, _, ref_modes, ref_stats = runs["unmeshed"]
-                steps = SHORT_CHAIN_STEPS * (NUM_SAMPLES // SAMPLE_BATCH)
                 line = dict(unmeshed_ms_per_step=1e3 * ref_s / steps,
                             unmeshed_samples_per_s=NUM_SAMPLES / ref_s)
                 for label in ("eager", "resident"):
-                    got, secs, capture_s, (b1, b4), modes, stats = runs[label]
+                    got, secs, capture_s, (b1, b4, f1), modes, stats = runs[label]
                     same_modes = (modes is None and ref_modes is None) or (
                         modes is not None and torch.equal(modes, ref_modes))
                     line[label] = dict(ms_per_step=1e3 * secs / steps,
                                        samples_per_s=NUM_SAMPLES / secs, capture_s=capture_s,
-                                       launches_b1=b1, launches_b4=b4,
+                                       launches_b1=b1, launches_b4=b4, launches_f1=f1,
                                        bitwise_equal=bool(torch.equal(got, ref)),
                                        max_abs_diff=float((got - ref).abs().max()),
                                        modes_equal=same_modes, stats_equal=stats == ref_stats)
                     out["launches"]["b1"] += b1
                     out["launches"]["b4"] += b4
+                    out["launches"]["f1"] += f1
                     check(line[label]["bitwise_equal"] and same_modes and stats == ref_stats,
                           f"dist {name} {label}: the mesh's samples, modes or statistics differ "
                           f"from the sampler's without a mesh ({line[label]})")
@@ -1584,7 +1673,7 @@ def dist_phase(torch, bda, mha) -> dict:
                 print(f"dist {name}", json.dumps(line), flush=True)
                 out[name] = line
             out["train"] = dist_train(torch, bda, mha, mesh, Path(tmp))
-            for k in ("b1", "b2", "b3", "b4"):
+            for k in ("b1", "b2", "b3", "b4", "f1"):
                 out["launches"][k] += out["train"]["launches"][k]
         finally:
             dist.destroy_process_group()
@@ -1613,7 +1702,8 @@ def dist_train(torch, bda, mha, mesh, tmp: Path) -> dict:
     dm.prepare_data()
     dm.setup()
     n_steps = get_training_params(dm, TRAIN_EPOCHS)["num_training_steps"]
-    out = {"launches": dict(b1=0, b2=0, b3=0, b4=0)}
+    val_forwards = TRAIN_EPOCHS * len(dm.val_dataloader())
+    out = {"launches": dict(b1=0, b2=0, b3=0, b4=0, f1=0)}
     for loop, kw in (("graphed", dict(steps_per_call=16)), ("resident", dict(epochs_per_call=2))):
         fits = {}
         for label, on in (("unmeshed", None), ("mesh", mesh)):
@@ -1644,6 +1734,9 @@ def dist_train(torch, bda, mha, mesh, tmp: Path) -> dict:
               f"unmeshed one (val loss {v1} against {v0})")
         check(counts["b1"] > 0 and counts["b2"] > 0 and counts["b3"] > 0,
               f"dist train {loop}: launches {counts}")
+        check(counts["f1"] == cfg.num_layers * val_forwards,
+              f"dist train {loop}: {counts['f1']} F1 launches for {val_forwards} validation "
+              f"forwards x {cfg.num_layers} layers")
     print("dist train", json.dumps(out), flush=True)
     return out
 
@@ -2037,6 +2130,7 @@ def eval_phase(torch, bda, model, dm) -> dict:
     base = {k: v for k, v in CACHE_KWARGS.items() if k != "tau_0"}
     torch.cuda.synchronize()
     bda.launches = 0
+    _reset_ffn_count()
     t0 = time.perf_counter()
     cal = calibrate_tau_0(model, num_samples=NUM_SAMPLES, num_diffusion_steps=NUM_STEPS,
                           sample_batch_size=SAMPLE_BATCH, seed=3, cache_kwargs=base,
@@ -2046,9 +2140,10 @@ def eval_phase(torch, bda, model, dm) -> dict:
     steps = NUM_STEPS * (NUM_SAMPLES // SAMPLE_BATCH)
     forwards = 2 * steps + sum(round(steps * (1 - a.steps_skipped_ratio)) for a in cal.arms)
     cal_launches = bda.launches
+    cal_f1 = _ffn_launches("calibration", layers, forwards)
     print("eval: calibration", json.dumps(dict(
         tau_0=cal.tau_0, sw_noise_floor=cal.sw_noise_floor, seconds=cal_seconds,
-        launches_b1=cal_launches, cache_kwargs=cal.cache_kwargs,
+        launches_b1=cal_launches, launches_f1=cal_f1, cache_kwargs=cal.cache_kwargs,
         arms=[dict(dataclasses.asdict(a), accepted=a.accepted) for a in cal.arms])), flush=True)
     check(math.isfinite(cal.sw_noise_floor) and cal.sw_noise_floor > 0,
           f"calibration: noise floor {cal.sw_noise_floor}")
@@ -2064,13 +2159,14 @@ def eval_phase(torch, bda, model, dm) -> dict:
         original_samples=dm.X_train, include_baselines=True, include_spectral_density=True)
     mean, std = dm.feature_mean_and_std
     result = dict(calibration_tau_0=cal.tau_0, sw_noise_floor=cal.sw_noise_floor,
-                  calibration_seconds=cal_seconds, launches=cal_launches)
+                  calibration_seconds=cal_seconds, launches=cal_launches, launches_f1=cal_f1)
     for name, use_cache in (("uncached", False), ("cached", True)):
         sampler = DiffusionSampler(model, SAMPLE_BATCH, use_cache=use_cache,
                                    cache_kwargs=CACHE_KWARGS if use_cache else None,
                                    batches_per_call=EVAL_BATCHES_PER_CALL)
         torch.cuda.synchronize()
         bda.launches = 0
+        _reset_ffn_count()
         t0 = time.perf_counter()
         x = sampler.sample(NUM_SAMPLES, NUM_STEPS,
                            generator=torch.Generator(device="cuda").manual_seed(4))
@@ -2081,6 +2177,7 @@ def eval_phase(torch, bda, model, dm) -> dict:
         check(bda.launches == layers * full,
               f"eval {name}: {bda.launches} B1 launches for {full} full forwards x {layers}")
         result["launches"] += bda.launches
+        result["launches_f1"] += _ffn_launches(f"eval {name}", layers, full)
         # Back to the data domain (cli/sample.py:139-143).
         data = x.cpu().numpy() * std + mean
         series = idft(torch.from_numpy(data).float())
@@ -2107,6 +2204,7 @@ def train_phase(torch, bda) -> dict:
     Returns the result, the trained model and the datamodule."""
     from fdtpu_torch.data import SyntheticDatamodule
     from fdtpu_torch.diffusion import VPScheduler, sde_loss
+    from fdtpu_torch.kernels import ffn
     from fdtpu_torch.models import ScoreModel, ScoreModelConfig, init_score_model
     from fdtpu_torch.train import Trainer, get_training_params, make_optimizer, train_step
 
@@ -2153,12 +2251,13 @@ def train_phase(torch, bda) -> dict:
                           log_every_n_steps=10_000)
         torch.cuda.synchronize()
         bda.launches = bda.launches_bwd = bda.launches_trainable = 0
+        _reset_ffn_count()
         t0 = time.perf_counter()
         trainer.fit(model, dm)
         torch.cuda.synchronize()
         fit_s = time.perf_counter() - t0
         counts = dict(launches=bda.launches, launches_bwd=bda.launches_bwd,
-                      launches_trainable=bda.launches_trainable)
+                      launches_trainable=bda.launches_trainable, launches_f1=ffn.launches)
         records = [json.loads(line) for line in trainer.metrics_path.read_text().splitlines()]
     epochs = [r for r in records if "val/loss" in r]
     steps = TRAIN_EPOCHS * len(dm.train_dataloader())
@@ -2176,6 +2275,8 @@ def train_phase(torch, bda) -> dict:
           f"train: {counts['launches_trainable']} B3 backward passes for {steps} steps")
     check(counts["launches"] == layers * (steps + val_forwards),
           f"train: {counts['launches']} B1 launches for {steps} + {val_forwards} forwards")
+    check(counts["launches_f1"] == layers * val_forwards,
+          f"train: {counts['launches_f1']} F1 launches for {val_forwards} validation forwards")
     check(not any(p.requires_grad for p in model.network.parameters()),
           "train: the returned network is not frozen")
 
@@ -2225,12 +2326,33 @@ def train_phase(torch, bda) -> dict:
 
 
 def _cli_counts(bda, mha) -> dict:
-    return dict(b1=bda.launches, b2=bda.launches_bwd, b3=bda.launches_trainable, b4=mha.launches)
+    from fdtpu_torch.kernels import ffn
+
+    return dict(b1=bda.launches, b2=bda.launches_bwd, b3=bda.launches_trainable, b4=mha.launches,
+                f1=ffn.launches)
 
 
 def _reset_counts(torch, bda, mha) -> None:
     torch.cuda.synchronize()
     bda.launches = bda.launches_bwd = bda.launches_trainable = mha.launches = 0
+    _reset_ffn_count()
+
+
+def _reset_ffn_count() -> None:
+    from fdtpu_torch.kernels import ffn
+
+    ffn.launches = 0
+
+
+def _ffn_launches(name: str, layers: int, forwards: int) -> int:
+    """F1's launches since ``_reset_ffn_count``, checked: one a layer for
+    every forward that records no gradient (FULL, TOPK, MIXED and CACHED
+    alike); a training step composes the FFN tail and launches none."""
+    from fdtpu_torch.kernels import ffn
+
+    check(ffn.launches == layers * forwards,
+          f"{name}: {ffn.launches} F1 launches for {forwards} forwards x {layers} layers")
+    return ffn.launches
 
 
 def _reset_step_counts() -> None:
@@ -2314,6 +2436,8 @@ def cli_phase(torch, bda, mha) -> dict:
               f"cli train: B2/B3 launches {counts} for {steps} steps x {layers} layers")
         check(counts["b1"] == layers * (steps + val_forwards),
               f"cli train: {counts['b1']} B1 launches for {steps} + {val_forwards} forwards")
+        check(counts["f1"] == layers * val_forwards,
+              f"cli train: {counts['f1']} F1 launches for {val_forwards} validation forwards")
         out["train"] = line
 
         # Sample: the three variants through the sample CLI, on that run.
@@ -2355,6 +2479,8 @@ def cli_phase(torch, bda, mha) -> dict:
                   f"cli sample {name}: {counts['b1']} B1 launches for {full} full forwards")
             check(counts["b4"] == layers * topk,
                   f"cli sample {name}: {counts['b4']} B4 launches for {topk} TOPK steps")
+            check(counts["f1"] == layers * (full + topk),
+                  f"cli sample {name}: {counts['f1']} F1 launches for {full} + {topk} forwards")
             if name == "token":
                 check(topk > 0, "cli sample token: no TOPK step")
             out[f"sample_{name}"] = line
@@ -2416,6 +2542,8 @@ def cli_phase(torch, bda, mha) -> dict:
         check(math.isfinite(line["train_loss"]) and math.isfinite(line["val_loss"]),
               "cli accumulate: loss not finite")
         check(counts["b2"] == layers * steps1, f"cli accumulate: {counts['b2']} B2 launches")
+        check(counts["f1"] == layers * len(dm.val_dataloader()),
+              f"cli accumulate: {counts['f1']} F1 launches for one epoch's validation")
         out["accumulate"] = line
 
         # MLP and LSTM: a train-CLI epoch, then 50 steps CUDA against the CPU.
@@ -2626,6 +2754,8 @@ def data_phase(torch, bda, mha) -> dict:
         check(counts["b2"] == layers * steps and counts["b3"] == layers * steps
               and counts["b1"] == layers * (steps + val_forwards),
               f"data train: launches {counts} for {steps} steps, {val_forwards} val forwards")
+        check(counts["f1"] == layers * val_forwards,
+              f"data train: {counts['f1']} F1 launches for {val_forwards} validation forwards")
         out["train"] = line
 
         # Sample from that run at configs/sample.yaml's defaults.
@@ -2653,6 +2783,8 @@ def data_phase(torch, bda, mha) -> dict:
                   f"data sample {name}: samples {samples.shape} or metrics")
             check(counts["b1"] == layers * full,
                   f"data sample {name}: {counts['b1']} B1 launches for {full} full forwards")
+            check(counts["f1"] == layers * full,
+                  f"data sample {name}: {counts['f1']} F1 launches for {full} forwards")
             out[f"sample_{name}"] = line
         # The cache CLIs run at CACHE_CLI_STEPS steps a chain (a cut of the
         # defaults' depth, to keep the script in its time), as many batches.
@@ -2688,6 +2820,10 @@ def data_phase(torch, bda, mha) -> dict:
                              for name, e in results.items()}
             print("data ablation", json.dumps(line), flush=True)
             check(line["b1"] > 0 and line["b4"] > 0, f"data ablation: launches {line}")
+            # Each of the flagship's forwards launches B1 (FULL) or B4 (the
+            # cached modes) once a layer, and F1 once a layer.
+            check(line["f1"] == line["b1"] + line["b4"],
+                  f"data ablation: {line['f1']} F1 launches for B1 + B4 {line['b1'] + line['b4']}")
             out["ablation"] = line
 
             _reset_counts(torch, bda, mha)
@@ -2714,6 +2850,9 @@ def data_phase(torch, bda, mha) -> dict:
                              for row in rows}
             print("data benchmark", json.dumps(line), flush=True)
             check(line["b1"] > 0 and line["b4"] > 0, f"data benchmark: launches {line}")
+            check(line["f1"] == line["b1"] + line["b4"],
+                  f"data benchmark: {line['f1']} F1 launches for B1 + B4 "
+                  f"{line['b1'] + line['b4']}")
             out["benchmark"] = line
         finally:
             os.chdir(here)
@@ -2822,7 +2961,7 @@ def table2_phase(torch, bda, mha) -> dict:
         payload = json.loads((tmp / "table2_ecg_full.json").read_text())
         errors = table2_schema_errors(payload, "ecg", domains=("frequency", "time"))
         check(not errors, f"table2 ecg: not the Table-2 schema: {errors}")
-        totals = dict(b1=0, b2=0, b3=0, b4=0)
+        totals = dict(b1=0, b2=0, b3=0, b4=0, f1=0)
         for i, domain in enumerate(("frequency", "time")):
             (_, trainer, train_s, tc), *arms = ecg_calls[3 * i: 3 * i + 3]
             entry = payload["domains"][domain]
@@ -2834,6 +2973,8 @@ def table2_phase(torch, bda, mha) -> dict:
                   f"table2 {domain}: not the flagship on the 1000 localized beats")
             check(tc["b2"] == tc["b3"] == layers * steps and tc["b1"] == layers * (steps + val),
                   f"table2 {domain} train: launches {tc} for {steps} steps, {val} val forwards")
+            check(tc["f1"] == layers * val,
+                  f"table2 {domain} train: {tc['f1']} F1 launches for {val} validation forwards")
             line = dict(train_s=entry["train_time_s"], train_call_s=train_s,
                         train_samples=len(trainer.datamodule.X_train), train_steps=steps,
                         val_forwards=val, best_val_loss=entry["best_val_loss"], arms={})
@@ -2842,7 +2983,7 @@ def table2_phase(torch, bda, mha) -> dict:
                 row = entry["arms"][arm]
                 stats = runner.sampler.get_cache_stats() if runner.sampler.use_cache else {}
                 full = stats.get("full_steps", NUM_STEPS * (NUM_SAMPLES // SAMPLE_BATCH))
-                check(sc["b1"] == layers * full and sc["b2"] == 0,
+                check(sc["b1"] == layers * full and sc["b2"] == 0 and sc["f1"] == layers * full,
                       f"table2 {domain} {arm}: {sc} for {full} full forwards")
                 check(math.isfinite(row["time_sliced_wasserstein_mean"]),
                       f"table2 {domain} {arm}: SW {row['time_sliced_wasserstein_mean']}")
@@ -2859,7 +3000,9 @@ def table2_phase(torch, bda, mha) -> dict:
         out["summary"] = payload["summary"]
         out["protocol"] = payload["protocol"]
         out["ecg_seconds"] = ecg_seconds
-        fixture_counts = {k: sum(c[3][k] for c in calls) for k in totals}
+        # F1's fixture launches stay out of its count: nothing checks them
+        # against the fixtures' forwards.
+        fixture_counts = {k: sum(c[3][k] for c in calls) for k in ("b1", "b2", "b3", "b4")}
         fixture_line = dict(seconds=fixture_seconds, **fixture_counts, summaries={})
         datasets = sorted(harness.DATASETS)
         for ds in datasets:
@@ -2873,7 +3016,7 @@ def table2_phase(torch, bda, mha) -> dict:
               f"table2 fixtures: launches {fixture_counts}")
         print("table2 fixtures", json.dumps(fixture_line), flush=True)
         out["fixtures"] = fixture_line
-        out["counts"] = {k: totals[k] + fixture_counts[k] for k in totals}
+        out["counts"] = {k: totals[k] + fixture_counts.get(k, 0) for k in totals}
         out["viz"] = viz_tables(torch, tmp, datasets)
     print(f"table2 phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
     return out
@@ -2942,7 +3085,7 @@ def main() -> int:
     try:
         from fdtpu_torch.kernels import attention as mha
         from fdtpu_torch.kernels import blockdiag_attention as bda
-        from fdtpu_torch.kernels import build, chain_step
+        from fdtpu_torch.kernels import build, chain_step, ffn
         from fdtpu_torch.utils import conditional
     except ImportError as exc:
         print(f"chip_smoke: fdtpu_torch is not importable here ({exc})", file=sys.stderr)
@@ -2956,8 +3099,8 @@ def main() -> int:
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}", flush=True)
     t0 = time.perf_counter()
-    build.build([bda.SOURCE, bda.SOURCE_BWD, mha.SOURCE, conditional.SOURCE, chain_step.SOURCE],
-                verbose=True)
+    build.build([bda.SOURCE, bda.SOURCE_BWD, mha.SOURCE, conditional.SOURCE, chain_step.SOURCE,
+                 ffn.SOURCE], verbose=True)
     print(f"build: {time.perf_counter() - t0:.1f} s", flush=True)
 
     if sys.argv[1:] == ["--step-times"]:
@@ -2965,6 +3108,9 @@ def main() -> int:
         return 0
     if sys.argv[1:] == ["--chain-step"]:
         chain_step_phase(torch)
+        return 0
+    if sys.argv[1:] == ["--ffn"]:
+        ffn_kernel_phase(torch)
         return 0
     if sys.argv[1:] == ["--export-window"]:
         export_window(torch)
@@ -2985,6 +3131,7 @@ def main() -> int:
     bwd_results = timed("kernel_bwd", bwd_kernel_phase, torch, bda)
     trainable = timed("trainable", trainable_phase, torch, bda)
     step_results = timed("chain_step", chain_step_phase, torch)
+    ffn_results = timed("kernel_ffn", ffn_kernel_phase, torch)
     timed("head_dim_sweep", head_dim_sweep, torch, bda, mha)
     timed("slice", slice_phase, torch, bda)
     levels = timed("levels", levels_phase, torch, bda, mha)
@@ -3016,8 +3163,8 @@ def main() -> int:
                   "max_abs_err": r["max_abs_err"], "ms": r["kernel_ms"],
                   "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                   "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-                  **{key: r[key] for key in ("device_ms", "same_input_err")
-                     if key in r}} for r in results]
+                  **{key: r[key] for key in ("device_ms", "same_input_err", "rel_l2", "tflops",
+                                             "splits") if key in r}} for r in results]
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": launches, "max_abs_err": max(r["max_abs_err"] for r in fp32),
                 "ms": head["kernel_ms"], "plain_ms": head["plain_ms"],
@@ -3060,6 +3207,13 @@ def main() -> int:
                         "plain_ms": rec["plain_ms"], "plain_graph_ms": rec["plain_graph_ms"],
                         "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
                         "library_ms": None})
+    # The F1 launches of the runs whose counts were checked.
+    records.append(kernel_record("ffn_block", "fdtpu_torch/kernels/csrc/ffn_block.cu",
+                                 "none: the encoder layer's FFN tail",
+                                 train["launches_f1"] + evaluation["launches_f1"]
+                                 + sum(c["launches_f1"] for c in level_chains)
+                                 + sum(c["f1"] for c in cli_runs) + meshed["launches"]["f1"],
+                                 ffn_results))
     print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"kernels": records}), flush=True)

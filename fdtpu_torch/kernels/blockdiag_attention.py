@@ -110,10 +110,11 @@ def _check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
 
 def _library(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``; the first use of either
-    source builds both, one ``nvcc`` each, in parallel."""
+    source builds the encoder layer's sources (``build.LAYER_SOURCES``), one
+    ``nvcc`` each, in parallel."""
     lib = _libs.get(name)
     if lib is None:
-        build.build([SOURCE, SOURCE_BWD])
+        build.build(list(build.LAYER_SOURCES))
         lib = build.load(name)
         if name == SOURCE:
             fn = lib.fdtpu_blockdiag_mha_fwd

@@ -25,6 +25,11 @@ NVCC_FLAGS = [
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 ]
 
+# The encoder layer's kernels (B1, B2, F1): the first use of any builds all
+# three, one ``nvcc`` each in parallel, since a forward on the card reaches B1
+# and F1 within its first layer.
+LAYER_SOURCES = ("blockdiag_attention", "blockdiag_attention_bwd", "ffn_block")
+
 _loaded: dict[str, ctypes.CDLL] = {}
 
 

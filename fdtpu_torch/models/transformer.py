@@ -35,6 +35,12 @@ layer's K/V store, ``(k, v)`` each ``(B, T, H, Dh)``, and update it in place
   operators (``fdtpu::blockdiag_mha``, ``fdtpu::fused_mha``), on every path:
   eager, captured in CUDA graphs, and traced by ``torch.export``
   (:mod:`fdtpu_torch.serve`, which hands the in-place store updates copies).
+
+Every mode's FFN tail, ``norm2(x + linear2(relu(linear1(x))))``, goes through
+the registered operator ``fdtpu::ffn_block`` (:mod:`fdtpu_torch.kernels.ffn`:
+kernel F1 on the card, this composition op for op on the CPU) when no dropout
+acts, no gradient is recorded, there is no model axis and the compute dtype is
+float32 at a width F1 takes; otherwise the layer composes it as before.
 """
 
 from __future__ import annotations
@@ -48,6 +54,8 @@ from torch import nn
 from fdtpu_torch.dist.parallel import draw
 from fdtpu_torch.kernels.attention import fused_mha, mha_plain
 from fdtpu_torch.kernels.blockdiag_attention import blockdiag_mha_trainable
+from fdtpu_torch.kernels.ffn import MAX_WIDTH as FFN_MAX_WIDTH
+from fdtpu_torch.kernels.ffn import ffn_block, layer_norm
 from fdtpu_torch.models.initializers import linear_init_, xavier_uniform_
 
 ATTENTION_IMPLS = ("einsum", "blockdiag", "blockdiag_noshift")
@@ -71,11 +79,7 @@ class LayerNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(d_model))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x32 = x.float()
-        mean = x32.mean(dim=-1, keepdim=True)
-        var = (x32 - mean).square().mean(dim=-1, keepdim=True)
-        normed = (x32 - mean) * torch.rsqrt(var + self.eps)
-        return normed.to(x.dtype) * self.weight.to(x.dtype) + self.bias.to(x.dtype)
+        return layer_norm(x, self.weight, self.bias, self.eps)
 
 
 def _lin(x: torch.Tensor, layer: nn.Linear) -> torch.Tensor:
@@ -205,10 +209,30 @@ class EncoderLayer(nn.Module):
         rate = self.dropout
         attn = self._row(attn, self.out_proj)
         x = self.norm1(x + _dropout(attn, rate, train, generator))
+        params = self._ffn_params()
+        if self._ffn_kernel(x, params, train, generator):
+            return ffn_block(x, *params, self.norm2.eps)
         ff = _dropout(torch.relu(_lin(self._to_model(x), self.linear1)), rate, train, generator,
                       cols=True)
         ff = self._row(ff, self.linear2)
         return self.norm2(x + _dropout(ff, rate, train, generator))
+
+    def _ffn_kernel(self, x: torch.Tensor, params: tuple[torch.Tensor, ...], train: bool,
+                    generator: Optional[torch.Generator]) -> bool:
+        """Whether the FFN tail goes through ``fdtpu::ffn_block`` (kernel F1
+        on the card): no dropout acts, no gradient is recorded, no model
+        axis, and float32 (input and parameters) at a width the kernel
+        takes.  Every other call (training steps, the tensor-parallel mesh,
+        bfloat16) composes it."""
+        dropout = train and self.dropout > 0.0 and generator is not None
+        return (not dropout and not torch.is_grad_enabled() and self.model_axis is None
+                and x.dtype == torch.float32 and x.shape[-1] <= FFN_MAX_WIDTH
+                and all(p.dtype == torch.float32 for p in params))
+
+    def _ffn_params(self) -> tuple[torch.Tensor, ...]:
+        """``fdtpu::ffn_block``'s parameters: linear1's, linear2's, norm2's."""
+        return (self.linear1.weight, self.linear1.bias, self.linear2.weight, self.linear2.bias,
+                self.norm2.weight, self.norm2.bias)
 
     def _to_model(self, x: torch.Tensor) -> torch.Tensor:
         """The input of a column-parallel projection: ``x`` itself, or under

@@ -33,7 +33,8 @@ functions, the branches the sampler's own step arithmetic
 equals the sampler bitwise (``tests/test_torch_export.py``).  Attention goes
 through the registered operators: ``fdtpu::blockdiag_mha`` (kernel B1) in
 every full forward under ``attention_impl="blockdiag"``, ``fdtpu::fused_mha``
-(B4) in the cached modes; FreqCa's Hermite fit through
+(B4) in the cached modes; every layer's FFN tail through ``fdtpu::ffn_block``
+(F1); FreqCa's Hermite fit through
 ``fdtpu::hermite_solve`` (:mod:`fdtpu_torch.ops.fourier`, cuSOLVER pinned
 inside the operator on the card), as in the sampler.  Run eagerly, the loop
 reads its predicate and each ``cond`` its branch on the host every step, as

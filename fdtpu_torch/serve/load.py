@@ -15,10 +15,10 @@ from typing import Any, Callable
 
 import torch
 
-from fdtpu_torch.kernels import attention, blockdiag_attention, build, solve
+from fdtpu_torch.kernels import attention, blockdiag_attention, build, ffn, solve
 
 # Importing these registers the fdtpu:: operators that the program calls.
-OPERATOR_MODULES = (attention, blockdiag_attention, solve)
+OPERATOR_MODULES = (attention, blockdiag_attention, ffn, solve)
 
 
 def _draw(spec: dict[str, Any], generator: torch.Generator, device: torch.device) -> torch.Tensor:
@@ -43,7 +43,7 @@ def load_exported(path: str | Path) -> Callable[[torch.Generator], torch.Tensor]
     device = torch.device(meta["platforms"][0])
     steps = int(meta["num_diffusion_steps"])
     if device.type == "cuda":
-        build.build([blockdiag_attention.SOURCE, blockdiag_attention.SOURCE_BWD, attention.SOURCE])
+        build.build([*build.LAYER_SOURCES, attention.SOURCE])
 
     @torch.no_grad()
     def fn(generator: torch.Generator) -> torch.Tensor:

@@ -41,13 +41,14 @@ import torch
 from fdtpu_torch.kernels import attention as _mha
 from fdtpu_torch.kernels import blockdiag_attention as _bda
 from fdtpu_torch.kernels import chain_step as _step
+from fdtpu_torch.kernels import ffn as _ffn
 from fdtpu_torch.utils.profiling import span
 
 # The launch counters of the kernel wrappers: B1, B2, B3's backward passes,
-# B4, the score chain's step kernels.
+# B4, the score chain's step kernels, F1.
 COUNTERS = ((_bda, "launches"), (_bda, "launches_bwd"), (_bda, "launches_trainable"),
             (_mha, "launches"), (_step, "launches_pre"), (_step, "launches_skip"),
-            (_step, "launches_post"))
+            (_step, "launches_post"), (_ffn, "launches"))
 
 
 def launch_counts() -> tuple[int, ...]:

@@ -484,7 +484,10 @@ def _draws(num_batches, n, t_len=33, channels=2, batch=4, seed=7):
 def _resident_against_eager(model, kw, options, n, batch, injected):
     """Three batches at ``batches_per_call`` 1 (the eager loop) and 2 (two
     trajectories as replays of the resident graph and the remainder a third
-    replay), twice over the same samplers."""
+    replay), twice over the same samplers; B1, B4 and F1 counted through the
+    replays as the eager loop launches them."""
+    from fdtpu_torch.kernels import ffn
+
     layers = model.config.num_layers
     level = kw["level"] if kw else None
     samplers = {k: DiffusionSampler(model, batch, use_cache=kw is not None, cache_kwargs=kw,
@@ -493,13 +496,13 @@ def _resident_against_eager(model, kw, options, n, batch, injected):
     for _ in range(2):
         runs = {}
         for k, sampler in samplers.items():
-            bda.launches = mha.launches = 0
+            bda.launches = mha.launches = ffn.launches = 0
             draws = (_draws(3, n, t_len, channels, batch) if injected
                      else dict(generator=torch.Generator("cuda").manual_seed(5)))
             x = sampler.sample(3 * batch, n, **draws)
             torch.cuda.synchronize()
             runs[k] = (x, sampler.last_modes, sampler.get_cache_stats(),
-                       (bda.launches, mha.launches))
+                       (bda.launches, mha.launches, ffn.launches))
         (x1, m1, s1, c1), (x2, m2, s2, c2) = runs[1], runs[2]
         if kw is not None:
             first = (m1 != m2).nonzero()
@@ -509,7 +512,7 @@ def _resident_against_eager(model, kw, options, n, batch, injected):
         full = s1["full_steps"] if kw else 3 * n
         cached = (s1.get("mixed_steps", 0) + s1.get("cached_steps", 0) if level == "kv"
                   else s1.get("mixed_steps", 0) if level == "token" else 0)
-        assert c2 == (layers * full, layers * cached)
+        assert c2 == (layers * full, layers * cached, layers * (full + cached))
         assert torch.equal(x2, x1), f"samples differ by {float((x2 - x1).abs().max()):.3g}"
     (chain,) = samplers[2]._chains.values()
     assert chain.loop is not None
@@ -1319,3 +1322,123 @@ def test_dit_block_kernels_fall_under_the_three_ranges(cuda):
     found = json.loads(out.strip().splitlines()[-1])
     assert set(found) == {"fdtpu.dit.attention", "fdtpu.dit.mlp", "fdtpu.dit.modulation"}, found
     assert all(v > 0 for v in found.values()), found
+
+
+# ------------------------------------------------------------- F1: the FFN tail
+# F1 (fdtpu_torch/kernels/ffn.py) against the plain composition on the card
+# (cuBLAS sgemms, TF32 off): float32 sums in another order, so a relative L2
+# limit; the largest reading on the H100 is 1.6e-7.
+FFN_REL_TOL = 1e-6
+# The flagship's full forward (128 × 187 rows), droughts365's (128 × 365), the
+# token level's TOPK rows (128 × 24), a ragged count and one row: the hidden
+# split 4, 2, 11, 16 and 16 ways on the H100.
+FFN_ROWS = [128 * 187, 128 * 365, 128 * 24, 1001, 1]
+
+
+def _ffn_layer(d, f, n_head=1):
+    from fdtpu_torch.models.transformer import EncoderLayer
+
+    layer = EncoderLayer(d, n_head, f, attention_impl="blockdiag")
+    layer.reset_parameters(torch.Generator().manual_seed(d + f))
+    with torch.no_grad():
+        g = torch.Generator().manual_seed(1)
+        layer.norm2.weight.add_(0.1 * torch.randn(d, generator=g))
+        layer.norm2.bias.add_(0.1 * torch.randn(d, generator=g))
+    return layer.cuda()
+
+
+def _ffn_args(layer):
+    return (layer.linear1.weight.detach(), layer.linear1.bias.detach(),
+            layer.linear2.weight.detach(), layer.linear2.bias.detach(),
+            layer.norm2.weight.detach(), layer.norm2.bias.detach(), layer.norm2.eps)
+
+
+def _ffn_rel(got, want):
+    return float((got.double() - want.double()).norm() / want.double().norm())
+
+
+@pytest.mark.parametrize("m", FFN_ROWS)
+def test_ffn_kernel_matches_plain_float32(cuda, m):
+    from fdtpu_torch.kernels import ffn
+
+    args = _ffn_args(_ffn_layer(72, 2048, 12))
+    x = torch.randn((m, 72), generator=cuda, device="cuda")
+    before = ffn.launches
+    with torch.no_grad():
+        out = ffn.ffn_block_cuda(x, *args)
+        torch.cuda.synchronize()
+        assert ffn.launches == before + 1
+        assert _ffn_rel(out, ffn.ffn_block_plain(x, *args)) <= FFN_REL_TOL
+
+
+@pytest.mark.parametrize("d, f, m", [(12, 24, 34), (24, 48, 500), (24, 64, 64), (8, 200, 999),
+                                     (1, 7, 5), (40, 2048, 3072), (72, 100, 300),
+                                     (72, 2048 + 32, 257)])
+def test_ffn_kernel_at_other_widths_and_ragged_hidden(cuda, d, f, m):
+    from fdtpu_torch.kernels import ffn
+
+    args = _ffn_args(_ffn_layer(d, f))
+    x = torch.randn((m, d), generator=cuda, device="cuda")
+    with torch.no_grad():
+        out = ffn.ffn_block_cuda(x, *args)
+        assert _ffn_rel(out, ffn.ffn_block_plain(x, *args)) <= FFN_REL_TOL
+
+
+@pytest.mark.parametrize("m", [128 * 187, 128 * 24])
+def test_ffn_kernel_is_deterministic(cuda, m):
+    from fdtpu_torch.kernels import ffn
+
+    args = _ffn_args(_ffn_layer(72, 2048, 12))
+    x = torch.randn((m, 72), generator=cuda, device="cuda")
+    with torch.no_grad():
+        assert torch.equal(ffn.ffn_block_cuda(x, *args), ffn.ffn_block_cuda(x, *args))
+
+
+def test_ffn_kernel_raises_instead_of_falling_back(cuda):
+    from fdtpu_torch.kernels import ffn
+
+    layer = _ffn_layer(72, 2048, 12)
+    args = _ffn_args(layer)
+    x = torch.randn((64, 72), generator=cuda, device="cuda")
+    with torch.no_grad():
+        with pytest.raises(TypeError, match="float32"):
+            ffn.ffn_block_cuda(x.double(), *(a.double() if torch.is_tensor(a) else a
+                                             for a in args))
+        with pytest.raises(TypeError, match="float32"):
+            ffn.ffn_block_cuda(x.bfloat16(), *(a.bfloat16() if torch.is_tensor(a) else a
+                                               for a in args))
+        with pytest.raises(ValueError, match="widths"):
+            wide = _ffn_layer(80, 64)
+            ffn.ffn_block_cuda(torch.zeros((4, 80), device="cuda"), *_ffn_args(wide))
+        with pytest.raises(ValueError, match="contiguous"):
+            ffn.ffn_block_cuda(torch.zeros((72, 64), device="cuda").t(), *args)
+    with pytest.raises(NotImplementedError, match="no_grad"):
+        ffn.ffn_block_cuda(x, layer.linear1.weight, *args[1:])
+
+
+def test_ffn_operator_passes_opcheck_on_the_card(cuda):
+    from fdtpu_torch.kernels import ffn
+
+    args = _ffn_args(_ffn_layer(72, 2048, 12))
+    x = torch.randn((4, 24, 72), generator=cuda, device="cuda")
+    before = ffn.launches
+    torch.library.opcheck(torch.ops.fdtpu.ffn_block.default, (x, *args))
+    torch.cuda.synchronize()
+    assert ffn.launches > before
+
+
+def test_layer_on_the_card_takes_f1_only_without_gradients(cuda):
+    """A flagship layer's forward: through F1 under no_grad (one launch),
+    composed with gradients recorded (none), the two within F1's limit."""
+    from fdtpu_torch.kernels import ffn
+
+    layer = _ffn_layer(72, 2048, 12)
+    x = torch.randn((16, 187, 72), generator=cuda, device="cuda")
+    before = ffn.launches
+    composed = layer(x).detach()
+    assert ffn.launches == before
+    with torch.no_grad():
+        fused = layer(x)
+    torch.cuda.synchronize()
+    assert ffn.launches == before + 1
+    assert _ffn_rel(fused, composed) <= FFN_REL_TOL

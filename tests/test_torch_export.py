@@ -9,6 +9,7 @@ the same generator: bitwise at every exported level, since both run the same
 functions on the same draws (the loader draws them in the sampler's order).
 The score and token levels' chains must take both kinds of step.  Then the
 program's structure: one ``while_loop`` (the same graph at 8 and 64 steps),
+every layer's FFN tail through ``fdtpu::ffn_block``,
 the JAX meta's keys, FreqCa's programs run untraced, and a loader that
 imports no model, sampler, cache or training code and no JAX.  More levels
 are in tests/test_torch_export_levels.py, the JAX comparison and the CLI in
@@ -27,6 +28,7 @@ import torch
 from fdtpu_torch.diffusion import VPScheduler
 from fdtpu_torch.kernels import attention as mha
 from fdtpu_torch.kernels import blockdiag_attention as bda
+from fdtpu_torch.kernels import ffn
 from fdtpu_torch.models import ScoreModel, ScoreModelConfig, init_score_model
 from fdtpu_torch.sampling import DiffusionSampler
 from fdtpu_torch.serve import export_sampler, load_exported, make_sampling_fn
@@ -113,6 +115,29 @@ def test_the_program_launches_no_kernel_on_the_cpu(exported):
     before = (bda.launches, mha.launches)
     load_exported(path)(torch.Generator().manual_seed(0))
     assert (bda.launches, mha.launches) == before
+
+
+def test_every_forward_of_the_program_reaches_the_ffn_operator(exported):
+    """The exported graph runs each layer's FFN tail through
+    ``fdtpu::ffn_block`` (traced through its fake implementation), in the
+    token level's FULL and TOPK forwards alike, and on the CPU the reloaded
+    program launches no F1 kernel."""
+    _, path, _ = exported("token-full")
+    calls = []
+
+    def walk(module):
+        calls.extend(n for n in module.graph.nodes
+                     if str(n.target) == "fdtpu.ffn_block.default")
+        for child in module.children():
+            if isinstance(child, torch.fx.GraphModule):
+                walk(child)
+
+    walk(torch.export.load(path).module())
+    layers = tiny_model().config.num_layers
+    assert len(calls) >= 2 * layers and len(calls) % layers == 0
+    before = ffn.launches
+    load_exported(path)(torch.Generator().manual_seed(0))
+    assert ffn.launches == before
 
 
 def test_meta_has_the_jax_keys_and_the_draws(exported):

@@ -212,15 +212,15 @@ def test_graph_runner_adds_each_capture_s_launches_at_every_replay(monkeypatch):
         _launch(b1=10, b2=3, b3=2, b4=1)
 
     runner.run("full", segment)  # the warm-up: a real step, counted by the wrappers
-    assert graphs.launch_counts() == (10, 3, 2, 1, 0, 0, 0)
+    assert graphs.launch_counts() == (10, 3, 2, 1, 0, 0, 0, 0)
     assert len(runs) == 2 and len(FakeGraph.made) == 1  # warm-up, then the capture
     for _ in range(3):
         runner.run("full", segment)
     assert len(runs) == 2 and FakeGraph.made[0].replays == 3 and runner.replays == 3
-    assert graphs.launch_counts() == (40, 12, 8, 4, 0, 0, 0)
+    assert graphs.launch_counts() == (40, 12, 8, 4, 0, 0, 0, 0)
     runner.run("skip", lambda: _launch(b4=2))
     runner.run("skip", lambda: None)
-    assert graphs.launch_counts() == (40, 12, 8, 8, 0, 0, 0)
+    assert graphs.launch_counts() == (40, 12, 8, 8, 0, 0, 0, 0)
 
 
 def test_a_failed_capture_raises_and_leaves_the_counts(monkeypatch):
@@ -235,7 +235,7 @@ def test_a_failed_capture_raises_and_leaves_the_counts(monkeypatch):
     runner = graphs.GraphRunner(Broken)
     with pytest.raises(RuntimeError, match="capturing"):
         runner.run("full", lambda: _launch(b1=5))
-    assert graphs.launch_counts() == (5, 0, 0, 0, 0, 0, 0) and not runner.graphs
+    assert graphs.launch_counts() == (5, 0, 0, 0, 0, 0, 0, 0) and not runner.graphs
 
 
 def test_a_cpu_runner_runs_every_segment_directly():

@@ -369,7 +369,7 @@ def test_chain_read_adds_the_replays_launches_once(models, monkeypatch):
     seen = []
     chain.loop = types.SimpleNamespace(
         launches=lambda replays, steps, runs: seen.append((replays, steps, runs))
-        or (1, 2, 3, 4, 5, 6, 7, 212), counted=True)
+        or (1, 2, 3, 4, 5, 6, 7, 8, 212), counted=True)
     chain.replays = 2
     chain.clock[resident.RUNS:] = torch.tensor([3, 8, 1])
     with profiling.recording():
@@ -377,7 +377,7 @@ def test_chain_read_adds_the_replays_launches_once(models, monkeypatch):
     assert profiling.export()["counters"] == {
         "chain.steps": 12, "chain.runs.skip": 3, "chain.runs.refresh": 8,
         "chain.runs.cold_refresh": 1, "chain.kernels": 212}
-    assert seen == [(2, 2 * 6, [3, 8, 1])] and graphs.launch_counts() == (1, 2, 3, 4, 5, 6, 7)
+    assert seen == [(2, 2 * 6, [3, 8, 1])] and graphs.launch_counts() == (1, 2, 3, 4, 5, 6, 7, 8)
     assert int(chain.clock[resident.RUNS:].sum()) == 0 and chain.replays == 0
     assert len(stats) == 7 and state.step == sampler.last_cache_state.step == 12
 
