@@ -912,9 +912,9 @@ def freq_options_phase(torch, bda, mha) -> dict:
         for dev, network, sched in (("cuda", net, scheduler), ("cpu", net_cpu, cpu_sched),
                                     ("cpu-einsum", net_cpu_einsum, cpu_sched)):
             # The score level's modes are what its decision wrote into the
-            # chain's ``modes``: on a card its step kernel takes the decision
-            # in place of ``score_skip_decision``.
-            modes, undo_modes = (recording(psampler, "_eager_chain", lambda out: out[0])
+            # chain's ``modes`` (``sample_chain``'s chain): on a card its step
+            # kernel takes the decision in place of ``score_skip_decision``.
+            modes, undo_modes = (recording(resident, "Chain", lambda chain: chain)
                                  if level == "score" else
                                  recording(resident, "event_policy", lambda out: int(out[0])))
             # The energy cutoff bin of each FreSca call (a device read a
@@ -1254,11 +1254,11 @@ def chain_step_phase(torch) -> list[dict]:
 
     n = b * seq
     kernels = {
-        "score_pre": (chain_step.score_pre, chain._score_pre,
+        "score_pre": (chain_step.score_pre, chain._pre,
                       (chain.clock, chain.mode, chain.sem, chain.modes, c["drift_rate"],
                        c["err_acc"], pp.tau_0, c["overrun"], pp.R, cfg.auto_calibrate),
                       9 * 8 + 4 * 4),
-        "score_skip": (chain_step.score_skip, chain._skip,
+        "score_skip": (chain_step.score_skip, lambda: chain._branch(chain.table.skip, None),
                        (chain.clock, chain.ts, chain.G, c["eps_hat"], c["eps_prev"],
                         c["eps_prev2"], c["eps_gap"], c["eps_gap2"], c["drift_rate"],
                         c["err_acc"], chain.score, cfg.eps_order, chain.scheduler),
@@ -1353,30 +1353,22 @@ def ffn_kernel_phase(torch) -> list[dict]:
 
 
 def timed_sample(torch, sampler, num_steps: int) -> tuple:
-    """``sampler.sample(NUM_SAMPLES, num_steps)`` from a seeded generator:
-    the samples, the call's wall seconds and the seconds of each graph
-    capture inside it (a resident chain captures at its first call)."""
-    from fdtpu_torch.sampling import resident
+    """``sampler.sample(NUM_SAMPLES, num_steps)`` from a seeded generator,
+    recorded (:mod:`fdtpu_torch.utils.profiling`): the samples, the whole
+    call's wall seconds and the seconds of each graph capture inside it (a
+    resident chain captures at its first call), from the recorder's
+    ``fdtpu.sample.capture`` spans."""
+    from fdtpu_torch.utils import profiling
 
-    captures = []
-    real_capture = resident.Chain._capture
-
-    def timed_capture(self):
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        real_capture(self)
-        torch.cuda.synchronize()
-        captures.append(time.perf_counter() - t1)
-
-    resident.Chain._capture = timed_capture
-    try:
+    with profiling.recording():
         t0 = time.perf_counter()
         samples = sampler.sample(NUM_SAMPLES, num_steps,
                                  generator=torch.Generator(device="cuda").manual_seed(2))
         torch.cuda.synchronize()
-        return samples, time.perf_counter() - t0, captures
-    finally:
-        resident.Chain._capture = real_capture
+        seconds = time.perf_counter() - t0
+    captures = [1e-9 * (s["end_ns"] - s["start_ns"]) for s in profiling.export()["spans"]
+                if s["name"] == "fdtpu.sample.capture"]
+    return samples, seconds, captures
 
 
 def flagship_model(torch):

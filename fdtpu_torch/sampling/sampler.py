@@ -2,7 +2,8 @@
 784-1151``).
 
 The JAX package compiles the whole trajectory into one ``lax.scan``.  Here a
-chain is a :class:`~fdtpu_torch.sampling.resident.Chain`: each step's
+trajectory is a :class:`~fdtpu_torch.sampling.resident.Chain`, which runs
+the one step table of :mod:`fdtpu_torch.sampling.resident`: each step's
 decision of the E²-CRF cache, taken on the device from the float32 cache
 state and the device counters, picks one of the step's branches:
 
@@ -13,10 +14,13 @@ state and the device counters, picks one of the step's branches:
   extrapolated) or SKIP;
 * KV level: the cached forward in the mode of the macro or event policy.
 
-``sample_chain`` and ``batches_per_call=1`` run the eager loop (one device
-read a step, of the branch); ``batches_per_call > 1`` runs each trajectory
-as one graph with the branches taken on the device.  This module holds the
-steps' arithmetic that both share.
+This module holds the branches' arithmetic (:func:`_refresh`,
+:func:`_skip`, :func:`_token_mode_step`), :func:`sample_chain` (one
+trajectory from a given prior sample, the eager loop: a device read a
+step) and :class:`DiffusionSampler`, whose :meth:`~DiffusionSampler.sample`
+runs its batches through one cached chain, eagerly or, with
+``batches_per_call > 1``, as replays of a graph with the branches taken on
+the device.
 
 The score level's skip predictor is a Taylor extrapolation of ε̂
 (``eps_order``) or FreqCa (``eps_predictor="freqca"``: the low-frequency part
@@ -31,10 +35,10 @@ Noise can be injected: ``sample_chain`` takes ``step_noise`` of shape
 of the random probes, token and KV levels), and ``DiffusionSampler.sample``
 takes ``prior_noise`` ``(N, T, C)``, ``step_noise`` ``(num_steps, N, T, C)``
 and ``probe_noise`` ``(num_batches, num_steps, T)``; otherwise the noise is
-drawn from a ``torch.Generator``: a step draws its probe uniforms (token
-level every step, used at TOPK; KV event level with probes), then its
-noise.  JAX and torch random streams never match, so replaying a JAX chain
-means handing its draws in.
+drawn from a ``torch.Generator``: a batch draws its prior, then each step
+its probe uniforms (token level every step, used at TOPK; KV event level
+with probes), then its noise.  JAX and torch random streams never match, so
+replaying a JAX chain means handing its draws in.
 
 Reference parity kept on purpose: remainder-dropping batch count (quirk Q6)
 and cache persistence across batches with a global step counter, the cache
@@ -85,12 +89,6 @@ def _check_cache_config(cfg: E2CRFConfig) -> None:
             f"eps_predictor='freqca' is a score-level predictor (got level={cfg.level!r})"
         )
     check_level(cfg)
-
-
-def _prep_cache_for_new_batch(state: CacheState) -> CacheState:
-    """Cross-batch cache prep (quirk Q5): keep the store but mark it cold so
-    the new trajectory recomputes and re-calibrates its drift rate."""
-    return state.replace(cold=True, drift_rate=torch.zeros_like(state.drift_rate))
 
 
 def eps_predict(
@@ -205,20 +203,11 @@ def _skip(c: CacheState, cfg: E2CRFConfig, t, std, since: Optional[torch.Tensor]
     return score, c.replace(err_acc=c.err_acc + c.drift_rate)
 
 
-def _filled(like: torch.Tensor, value) -> torch.Tensor:
-    """``like``-shaped tensor of ``value``: a host number, or a 0-d device
-    tensor (a captured graph reads its step counters on the device)."""
-    if isinstance(value, torch.Tensor):
-        return torch.zeros_like(like) + value.to(like.dtype)
-    return torch.full_like(like, value)
-
-
-def _index_fill(t: torch.Tensor, idx: torch.Tensor, value) -> torch.Tensor:
-    """``t.index_fill(0, idx, value)`` for a host number or a 0-d device
-    tensor (``index_fill`` reads a tensor value back to the host)."""
-    if isinstance(value, torch.Tensor):
-        return t.index_copy(0, idx, _filled(idx, value).to(t.dtype))
-    return t.index_fill(0, idx, value)
+def _filled(like: torch.Tensor, value: torch.Tensor) -> torch.Tensor:
+    """``like``-shaped tensor of the 0-d device tensor ``value``, without a
+    read to the host (a captured graph reads its step counters on the
+    device; ``full_like`` and ``index_fill`` would read the value)."""
+    return torch.zeros_like(like) + value.to(like.dtype)
 
 
 def _tok_norms(eps: torch.Tensor, group: Group = None) -> torch.Tensor:
@@ -339,7 +328,7 @@ def _token_mode_step(network, c: CacheState, cfg: E2CRFConfig, pp: PolicyParams,
             eps_prev=c.eps_prev.index_copy(1, idx, c.eps_hat.index_select(1, idx)),
             gap_tok=c.gap_tok.index_copy(0, idx, age_rows),
             eps_hat=c.eps_hat.index_copy(1, idx, eps_rows),
-            last_tok=_index_fill(c.last_tok, idx, step),
+            last_tok=c.last_tok.index_copy(0, idx, _filled(idx, step).to(c.last_tok.dtype)),
             delta_tok=c.delta_tok.index_copy(0, idx, rate_rows),
             eps_norm_ref=c.eps_norm_ref.index_copy(0, idx, ref_rows),
             err_acc=c.err_acc + err_inc.to(c.err_acc.dtype),
@@ -367,34 +356,6 @@ def _fresca(use_fresca: bool, low_scale, high_scale, cutoff_ratio: float, cutoff
                                      timestep=t, num_steps=num_steps, group=group)
 
     return fresca
-
-
-def _eager_chain(network, scheduler, x0, cache_state, cache_cfg, num_steps, step_noise,
-                 probe_noise, generator, fresca, guard_trace=False, shard=None):
-    """Run the eager loop from ``x0`` (``shard``: one rank's rows, as in
-    :class:`~fdtpu_torch.sampling.resident.Chain`); returns the chain and its
-    final state."""
-    from fdtpu_torch.sampling.resident import Chain
-
-    pp = None
-    if cache_cfg is not None:
-        pp = cache_cfg.policy_params(x0.device)
-        if cache_state is None:
-            cfg = network.config
-            cache_state = init_cache_state(
-                cache_cfg, x0.shape[0], x0.shape[1], x0.shape[2], x0.device,
-                num_layers=cfg.num_layers, n_head=cfg.n_head, head_dim=cfg.head_dim,
-                d_model=cfg.d_model, kv_dtype=cfg._cdtype,
-            )
-    chain = Chain(network, scheduler, cache_cfg, pp, cache_state, x0.shape[0], num_steps, fresca,
-                  x0.device, resident=False, inject_steps=step_noise is not None,
-                  inject_probes=probe_noise is not None, guard_trace=guard_trace, shard=shard)
-    chain.load(x0, step_noise, probe_noise)
-    chain.begin_call(generator)
-    chain.run_eager()
-    chain.end_call(generator)
-    state, _ = chain.read()
-    return chain, state
 
 
 @torch.no_grad()
@@ -428,14 +389,32 @@ def sample_chain(
     score goes through ``apply_fresca_to_score`` (the ``fresca_*``
     arguments, the JAX defaults) before the update of x.
     """
+    from fdtpu_torch.sampling.resident import Chain
+
     if cache_cfg is not None:
         _check_cache_config(cache_cfg)
     if guard_trace and (cache_cfg is None or cache_cfg.level != "score"):
         raise NotImplementedError("guard_trace only supports level='score'")
+    pp = None
+    if cache_cfg is not None:
+        pp = cache_cfg.policy_params(x0.device)
+        if cache_state is None:
+            cfg = network.config
+            cache_state = init_cache_state(
+                cache_cfg, x0.shape[0], x0.shape[1], x0.shape[2], x0.device,
+                num_layers=cfg.num_layers, n_head=cfg.n_head, head_dim=cfg.head_dim,
+                d_model=cfg.d_model, kv_dtype=cfg._cdtype,
+            )
     fresca = _fresca(use_fresca, fresca_low_scale, fresca_high_scale, fresca_cutoff_ratio,
                      fresca_cutoff_strategy, num_steps)
-    chain, state = _eager_chain(network, scheduler, x0, cache_state, cache_cfg, num_steps,
-                                step_noise, probe_noise, generator, fresca, guard_trace)
+    chain = Chain(network, scheduler, cache_cfg, pp, cache_state, x0.shape[0], num_steps, fresca,
+                  x0.device, resident=False, inject_steps=step_noise is not None,
+                  inject_probes=probe_noise is not None, guard_trace=guard_trace)
+    chain.load(x0, step_noise, probe_noise)
+    chain.begin_call(generator)
+    chain.run_eager()
+    chain.end_call(generator)
+    state, _ = chain.read()
     if guard_trace:
         return chain.x, state, tuple(chain.trace[:, j] for j in range(5))
     return chain.x, state
@@ -449,21 +428,28 @@ class DiffusionSampler:
     at the KV level); ``use_fresca`` and the ``fresca_*`` arguments scale each
     step's score by frequency band, with the JAX package's defaults.
 
-    ``batches_per_call`` > 1 runs the batches as the JAX package's resident
-    path does, when there is more than one batch: each trajectory is one
-    replay of a graph captured once per sampler and shape, its decisions
-    taken on the device (:mod:`fdtpu_torch.sampling.resident`), the replays
-    back to back with nothing read in between; on a CPU network the same
-    functions run as a loop.  The JAX package runs a remainder of fewer than
-    ``batches_per_call`` batches through its per-batch program, itself a
-    whole trajectory a dispatch, because a shorter group would recompile its
-    scan; here the remainder's trajectories are replays of the same graph.
-    The values are those of ``batches_per_call=1``, the eager per-step loop
-    (a device read a step).  After a call,
-    ``last_modes`` holds each batch's mode at every step ((batches, steps),
-    on the device; None uncached), and at the token level ``last_rows`` the
-    rows each TOPK step took ((batches, steps, budget) int64 on the device,
-    highest priority first, −1 at the other steps; None at other levels).
+    Every call runs its batches, one trajectory each, through one chain
+    (:class:`~fdtpu_torch.sampling.resident.Chain`), made at the sampler's
+    first call of that batch size, step count, set of injected draws and
+    way of running, and kept: the cache carried from one batch to the next
+    and marked cold (quirk Q5), the first batch's fresh; the counters and
+    the statistics read once, after the last batch.  ``batches_per_call`` >
+    1 runs the batches as the JAX package's resident path does, when there
+    is more than one batch: each trajectory is one replay of a graph
+    captured at the chain's first call, its decisions taken on the device,
+    the replays back to back with nothing read in between; on a CPU network
+    the same functions run as a loop.  The JAX package runs a remainder of
+    fewer than ``batches_per_call`` batches through its per-batch program,
+    itself a whole trajectory a dispatch, because a shorter group would
+    recompile its scan; here the remainder's trajectories are replays of the
+    same graph.  Otherwise each trajectory runs eagerly (a device read a
+    step, of the branch): the same functions, so the same values.  A chain
+    holds the network as it was cast to its compute dtype when the chain
+    was made.  After a call, ``last_modes`` holds each batch's mode at every
+    step ((batches, steps), on the device; None uncached), and at the token
+    level ``last_rows`` the rows each TOPK step took ((batches, steps,
+    budget) int64 on the device, highest priority first, −1 at the other
+    steps; None at other levels).
 
     ``mesh`` (a :class:`~torch.distributed.device_mesh.DeviceMesh` with a
     ``data`` axis, :func:`fdtpu_torch.dist.create_mesh`; every rank of it
@@ -622,138 +608,83 @@ class DiffusionSampler:
         ``step_noise`` (indexed by sample) and ``probe_noise`` (indexed by
         batch) when given, else from ``generator`` (seed 0 on the model's
         device by default)."""
-        if num_diffusion_steps is None:
-            num_diffusion_steps = self.score_model.num_training_steps
+        num_steps = num_diffusion_steps
+        if num_steps is None:
+            num_steps = self.score_model.num_training_steps
         if generator is None and any(a is None for a in (prior_noise, step_noise, probe_noise)):
             generator = torch.Generator(device=self.device).manual_seed(0)
 
         num_batches = max(1, num_samples // self.sample_batch_size)
+        batch = min(num_samples, self.sample_batch_size)
+        resident = self.batches_per_call > 1 and num_batches > 1
         level = self.cache_config.level if self.use_cache else None
-        with span("fdtpu.sample", level=level, batches=num_batches, steps=num_diffusion_steps):
-            if self.batches_per_call > 1 and num_batches > 1:
-                return self._sample_resident(num_batches, num_diffusion_steps, generator,
-                                             prior_noise, step_noise, probe_noise)
-            return self._sample_eager(num_samples, num_batches, num_diffusion_steps, generator,
-                                      prior_noise, step_noise, probe_noise)
+        with span("fdtpu.sample", level=level, batches=num_batches, steps=num_steps):
+            chain = self._chain(batch, num_steps, prior_noise is not None,
+                                step_noise is not None, probe_noise is not None, resident)
+            fresh_state = self._init_cache(batch)
+            chain.begin_call(generator)
+            all_samples, modes, rows_taken = [], [], []
+            for batch_idx in range(num_batches):
+                rows = slice(batch_idx * batch, (batch_idx + 1) * batch)
+                with span("fdtpu.sample.load", batch=batch_idx):
+                    chain.load(
+                        None if prior_noise is None else self.sample_prior(batch, None,
+                                                                           prior_noise[rows]),
+                        None if step_noise is None else self._rows(step_noise[:, rows], 1),
+                        None if probe_noise is None else probe_noise[batch_idx])
+                    if self.use_cache:
+                        if batch_idx == 0 or self.cache_config.reset_between_batches:
+                            chain.reset(fresh_state)
+                        else:
+                            chain.mark_cold()
+                if resident:
+                    chain.run_resident()
+                else:
+                    chain.run_eager()
+                with span("fdtpu.sample.gather", batch=batch_idx):
+                    all_samples.append(self._gather(chain.x.clone()))
+                    if self.use_cache:
+                        modes.append(chain.modes.clone())
+                    if chain.rows is not None:
+                        rows_taken.append(chain.rows.clone())
+            chain.end_call(generator)
+            with span("fdtpu.sample.read"):
+                cache_state, stats = chain.read(stats=True)
+            with span("fdtpu.sample.finish"):
+                self.last_cache_state = cache_state
+                self.last_modes = torch.stack(modes) if modes else None
+                self.last_rows = torch.stack(rows_taken) if rows_taken else None
+                self._last_stats = (None if cache_state is None
+                                    else cache_stats(cache_state, stats, self._shards()))
+                self._check_error_budget()
+                return torch.cat(all_samples, dim=0)
 
-    def _sample_eager(self, num_samples, num_batches, num_diffusion_steps, generator,
-                      prior_noise, step_noise, probe_noise) -> torch.Tensor:
-        """``batches_per_call`` 1, or a single batch: the eager loop, a
-        batch at a time."""
-        all_samples, modes, rows_taken = [], [], []
-        cache_state: Optional[CacheState] = None
+    def _chain(self, batch: int, num_steps: int, inject_prior: bool, inject_steps: bool,
+               inject_probes: bool, resident: bool):
+        """The sampler's chain for batches of ``batch``, made at first use."""
+        from fdtpu_torch.sampling.resident import Chain
 
-        def cache_batch(state: CacheState) -> int:
-            # Batch size (this rank's rows) of whichever per-batch store this level allocates.
-            return state.k.shape[1] if state.k.ndim > 1 else state.eps_hat.shape[0]
-
-        for batch_idx in range(num_batches):
-            with span("fdtpu.sample.batch", batch=batch_idx):
-                start = batch_idx * self.sample_batch_size
-                batch_size = min(num_samples - start, self.sample_batch_size)
-                rows = slice(start, start + batch_size)
-                x0 = self.sample_prior(
-                    batch_size, generator, None if prior_noise is None else prior_noise[rows]
-                )
-                if self.use_cache and (
-                    cache_state is None
-                    or self.cache_config.reset_between_batches
-                    or cache_batch(cache_state) != self._local(batch_size)
-                ):
-                    cache_state = self._init_cache(batch_size)
-                elif self.use_cache and batch_idx > 0:
-                    cache_state = _prep_cache_for_new_batch(cache_state)
-                chain, cache_state = self._eager_batch(
-                    x0, cache_state, num_diffusion_steps, generator,
-                    None if step_noise is None else self._rows(step_noise[:, rows], 1),
-                    None if probe_noise is None else probe_noise[batch_idx])
-                all_samples.append(self._gather(chain.x))
-                modes.append(chain.modes)
-                rows_taken.append(chain.rows)
-
-        self._finish(cache_state, modes, None, rows_taken)
-        return torch.cat(all_samples, dim=0)
+        key = (batch, num_steps, inject_prior, inject_steps, inject_probes, resident)
+        chain = self._chains.get(key)
+        if chain is None:
+            chain = Chain(
+                self.score_model.network, self.noise_scheduler, self.cache_config,
+                self.policy_params, self._init_cache(batch), self._local(batch), num_steps,
+                self._fresca_fn(num_steps), self.device, resident=resident,
+                inject_steps=inject_steps, inject_probes=inject_probes,
+                draw_prior=not inject_prior, shard=self.shard,
+            )
+            self._chains[key] = chain
+        return chain
 
     def _fresca_fn(self, num_steps: int):
         return _fresca(self.use_fresca, self.fresca_low_scale, self.fresca_high_scale,
                        self.fresca_cutoff_ratio, self.fresca_cutoff_strategy, num_steps,
                        None if self.shard is None else self.shard.group)
 
-    def _eager_batch(self, x0, cache_state, num_steps, generator, step_noise, probe_noise):
-        return _eager_chain(self.score_model.network, self.noise_scheduler, x0, cache_state,
-                            self.cache_config, num_steps, step_noise, probe_noise, generator,
-                            self._fresca_fn(num_steps), shard=self.shard)
-
     def _gather(self, x: torch.Tensor) -> torch.Tensor:
         """The whole batch from this rank's rows."""
         return gather_batch(x, None if self.shard is None else self.shard.group)
-
-    def _finish(self, state: Optional[CacheState], modes: list, stats: Optional[list],
-                rows: list) -> None:
-        self.last_cache_state = state
-        self.last_modes = torch.stack(modes) if self.use_cache and modes else None
-        self.last_rows = torch.stack(rows) if rows and rows[0] is not None else None
-        self._last_stats = (cache_stats(state, stats, self._shards())
-                            if state is not None and stats is not None else None)
-        self._check_error_budget()
-
-    def _resident_chain(self, num_steps: int, inject_prior: bool, inject_steps: bool,
-                        inject_probes: bool):
-        """The sampler's resident chain for this shape, made at first use."""
-        from fdtpu_torch.sampling.resident import Chain
-
-        key = (num_steps, inject_prior, inject_steps, inject_probes)
-        chain = self._chains.get(key)
-        if chain is None:
-            chain = Chain(
-                self.score_model.network, self.noise_scheduler, self.cache_config,
-                self.policy_params, self._init_cache(self.sample_batch_size),
-                self._local(self.sample_batch_size), num_steps, self._fresca_fn(num_steps),
-                self.device, resident=True, inject_steps=inject_steps,
-                inject_probes=inject_probes, draw_prior=not inject_prior, shard=self.shard,
-            )
-            self._chains[key] = chain
-        return chain
-
-    def _sample_resident(self, num_batches, num_steps, generator, prior_noise, step_noise,
-                         probe_noise) -> torch.Tensor:
-        """``batches_per_call`` > 1 (class docstring): the JAX package's
-        grouping — the same per-batch draws, the cache carried across
-        batches and marked cold (or re-initialised under
-        ``reset_between_batches``), the first batch fresh — as replays of the
-        resident chain, one a batch, with nothing read in between; the
-        counters and the statistics are read once, after the last."""
-        batch = self.sample_batch_size
-        chain = self._resident_chain(num_steps, prior_noise is not None, step_noise is not None,
-                                     probe_noise is not None)
-        fresh_state = self._init_cache(batch)
-        chain.begin_call(generator)
-        all_samples, modes, rows_taken = [], [], []
-        for batch_idx in range(num_batches):
-            rows = slice(batch_idx * batch, (batch_idx + 1) * batch)
-            with span("fdtpu.sample.load", batch=batch_idx):
-                chain.load(None if prior_noise is None else self.sample_prior(batch, None,
-                                                                             prior_noise[rows]),
-                           None if step_noise is None else self._rows(step_noise[:, rows], 1),
-                           None if probe_noise is None else probe_noise[batch_idx])
-                if self.use_cache:
-                    if batch_idx == 0 or self.cache_config.reset_between_batches:
-                        chain.reset(fresh_state)
-                    else:
-                        chain.mark_cold()
-            chain.run_resident()
-            with span("fdtpu.sample.gather", batch=batch_idx):
-                all_samples.append(self._gather(chain.x.clone()))
-                if self.use_cache:
-                    modes.append(chain.modes.clone())
-                if chain.rows is not None:
-                    rows_taken.append(chain.rows.clone())
-        chain.end_call(generator)
-        with span("fdtpu.sample.read"):
-            cache_state, stats = chain.read(stats=True)
-        with span("fdtpu.sample.finish"):
-            self._finish(cache_state, modes, stats, rows_taken)
-            return torch.cat(all_samples, dim=0)
 
     def _check_error_budget(self) -> None:
         """Collapse detector after every cached ``sample()``: warn (or raise
@@ -792,9 +723,7 @@ class DiffusionSampler:
     def get_cache_stats(self) -> dict[str, Any]:
         if self.last_cache_state is None:
             return {}
-        if self._last_stats is not None:
-            return dict(self._last_stats)
-        return cache_stats(self.last_cache_state, batch_shards=self._shards())
+        return dict(self._last_stats)
 
     def _shards(self) -> int:
         return 1 if self.shard is None else self.shard.size

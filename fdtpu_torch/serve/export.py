@@ -23,14 +23,17 @@ probes), each step's probe uniforms ``(steps, T)``.  ``fn`` draws them from
 its generator in the order the sampler does (the meta's ``draws``).
 
 The chain is functional.  One ``while_loop`` runs the steps, so the
-program's size does not grow with the step count; each step's E²-CRF
-decision picks one of the resident chain's branches
-(:mod:`fdtpu_torch.sampling.resident`) through nested ``torch.cond``\\s, and
-each branch returns the step's score and a new cache state instead of
-writing in place.  The decisions are :mod:`fdtpu_torch.cache.e2crf`'s
-functions, the branches the sampler's own step arithmetic
-(:mod:`fdtpu_torch.sampling.sampler`), so on the CPU the reloaded program
-equals the sampler bitwise (``tests/test_torch_export.py``).  Attention goes
+program's size does not grow with the step count; each step runs the
+resident chain's step table (:class:`~fdtpu_torch.sampling.resident.StepTable`:
+its decision, its branches, its update and counters), the decision picking
+a branch through nested ``torch.cond``\\s, each branch returning the step's
+score and a new cache state, which the loop carries.  What is the
+program's own is what a traced program needs: the carried tensors, the
+branches' outputs as contiguous copies, copies of the K/V store that the
+forwards write in place, and, at the KV level with FreqCa, a ``cond``
+inside each mode's branch on whether the step adds a ring entry, so that
+each forward is traced once.  On the CPU the reloaded program equals the
+sampler bitwise (``tests/test_torch_export.py``).  Attention goes
 through the registered operators: ``fdtpu::blockdiag_mha`` (kernel B1) in
 every full forward under ``attention_impl="blockdiag"``, ``fdtpu::fused_mha``
 (B4) in the cached modes; every layer's FFN tail through ``fdtpu::ffn_block``
@@ -43,9 +46,7 @@ the eager loop does.
 Exported levels: uncached; the score level (Taylor ε̂, every ``eps_order``,
 or FreqCa's ``eps_predictor="freqca"``, guard on or off, with or without
 FreSca); the token level; the KV level's event and macro policies, with or
-without FreqCa's ring (``use_freqca``: inside each mode's branch a ``cond``
-on whether the step adds a ring entry, so each forward is traced once).  A sampler on a
-mesh is not exported (the program is one device's).  The JAX package's
+without FreqCa's ring (``use_freqca``).  A sampler on a mesh is not exported (the program is one device's).  The JAX package's
 ``platforms`` choice becomes the sampler's device: the program runs where it
 was exported.
 """
@@ -64,28 +65,15 @@ from torch._higher_order_ops import while_loop
 
 from fdtpu_torch.cache.e2crf import (
     COUNTERS,
-    MODE_CACHED,
-    MODE_FULL,
-    MODE_MIXED,
-    TOKEN_FULL,
-    TOKEN_SKIP,
-    TOKEN_TOPK,
-    CacheState,
-    count_mode,
-    counters_of,
-    event_policy,
     RING_FIELDS,
+    CacheState,
+    counters_of,
     init_cache_state,
     kv_ring_due,
     kv_ring_entry,
-    kv_state_update,
-    macro_policy,
-    score_skip_decision,
-    token_policy,
 )
-from fdtpu_torch.models.score_models import score_apply_cached
-from fdtpu_torch.sampling.resident import TOKEN_COLD_FULL, cache_tensors
-from fdtpu_torch.sampling.sampler import DiffusionSampler, _refresh, _skip, _token_mode_step
+from fdtpu_torch.sampling.resident import StepTable, cache_tensors
+from fdtpu_torch.sampling.sampler import DiffusionSampler
 
 FORMAT = "torch.export/pt2"
 
@@ -122,7 +110,7 @@ class SamplingProgram(nn.Module):
         mcfg = sampler.score_model.config
         cfg = sampler.cache_config
         device = sampler.device
-        self.cfg, self.pp = cfg, sampler.policy_params
+        self.cfg = cfg
         self.level = None if cfg is None else cfg.level
         self.num_steps = num_diffusion_steps
         self.batch, self.max_len = sampler.sample_batch_size, mcfg.max_len
@@ -132,29 +120,25 @@ class SamplingProgram(nn.Module):
         if scheduler.G is not None:
             self.register_buffer("G", scheduler.G.to(device))
             scheduler = dataclasses.replace(scheduler, G=self.G)
-        self.scheduler = scheduler
         ts, step_size = scheduler.timesteps(num_diffusion_steps, device=device)
         self.register_buffer("ts", ts)
         self.register_buffer("step_size", step_size)
-        self.fresca = sampler._fresca_fn(num_diffusion_steps)
-        self.draws_probe = self.level == "token" or (
-            self.level == "kv" and cfg.policy == "event"
-            and cfg.resolved_random_probe_ratio > 0.0)
+        self.table = StepTable(self.network, scheduler, cfg, sampler.policy_params,
+                               sampler._fresca_fn(num_diffusion_steps), self.step_size,
+                               self.batch, ring_branches=False)
         if cfg is not None:
             self.fresh_state = partial(
                 init_cache_state, cfg, self.batch, mcfg.max_len, mcfg.n_channels, device,
                 num_layers=mcfg.num_layers, n_head=mcfg.n_head, head_dim=mcfg.head_dim,
                 d_model=mcfg.d_model, kv_dtype=mcfg._cdtype)
             self.names = list(cache_tensors(self.fresh_state()))
-            self.register_buffer("low_bonus", torch.where(
-                torch.arange(mcfg.max_len, device=device) < self.pp.K, 2e9, 0.0))
 
     # ------------------------------------------------------------ the inputs
     def input_shapes(self) -> dict[str, tuple[int, ...]]:
         """The program's inputs in call order, with their shapes."""
         shapes = {"prior_noise": self.shape,
                   "step_noise": (self.num_steps, *self.shape)}
-        if self.draws_probe:
+        if self.table.draws_probe:
             shapes["probe_noise"] = (self.num_steps, self.max_len)
         return shapes
 
@@ -162,7 +146,7 @@ class SamplingProgram(nn.Module):
         """How the sampler draws each input, in its order: the prior first,
         then at every step its probe uniforms and its noise."""
         shapes = self.input_shapes()
-        per_step = (["probe_noise"] if self.draws_probe else []) + ["step_noise"]
+        per_step = (["probe_noise"] if self.table.draws_probe else []) + ["step_noise"]
         return [{"name": name, "distribution": "uniform" if name == "probe_noise" else "normal",
                  "shape": list(shapes[name][1:] if name in per_step else shapes[name]),
                  "per_step": name in per_step}
@@ -174,12 +158,12 @@ class SamplingProgram(nn.Module):
     # --------------------------------------------------------------- the chain
     def forward(self, prior_noise: torch.Tensor, step_noise: torch.Tensor,
                 probe_noise: Optional[torch.Tensor] = None) -> torch.Tensor:
-        given = (prior_noise, step_noise) + ((probe_noise,) if self.draws_probe else ())
+        given = (prior_noise, step_noise) + ((probe_noise,) if self.table.draws_probe else ())
         for (name, shape), a in zip(self.input_shapes().items(), given):
             if a is None or tuple(a.shape) != shape:
                 raise ValueError(f"{name} must be {shape}, got "
                                  f"{None if a is None else tuple(a.shape)}")
-        x = self.scheduler.prior_sampling(prior_noise.shape, noise=prior_noise)
+        x = self.table.scheduler.prior_sampling(prior_noise.shape, noise=prior_noise)
         i = torch.zeros((), dtype=torch.int64, device=x.device)
         carried = (i, x)
         if self.level is not None:
@@ -194,110 +178,52 @@ class SamplingProgram(nn.Module):
         return CacheState(**dict(zip(self.names, tensors)),
                           **{n: counters[j] for j, n in enumerate(COUNTERS)})
 
-    @staticmethod
-    def _out(score: torch.Tensor, c: CacheState) -> tuple:
-        """A branch's outputs, each a copy: a ``cond`` branch may not return
-        one of its inputs, as a branch does with the state it leaves alone.
-        The copies are contiguous, since the branches of a ``cond`` must
-        agree in layout (FreqCa's prediction comes out of the solve
-        column-major)."""
-        return tuple(a.clone(memory_format=torch.contiguous_format)
-                     for a in (score, *cache_tensors(c).values()))
-
     def _step(self, step_noise, probe_noise, i, x, *carried):
+        table = self.table
         t = self.ts.index_select(0, i.reshape(1)).reshape(())
-        noise = step_noise.index_select(0, i.reshape(1))[0]
+
+        def noise():
+            return step_noise.index_select(0, i.reshape(1))[0]
+
         if self.level is None:
-            score = self.network(x, t.expand(self.batch))
-            return i + 1, self._update(score, t, x, noise)
+            score, _ = table.forward(None, x, t)
+            return i + 1, table.update(score, t, x, noise)
         counters, tensors = carried[0], carried[1:]
         c = self._view(counters, tensors)
-        probe = probe_noise.index_select(0, i.reshape(1))[0] if self.draws_probe else None
-        sem, branch, extra, n = getattr(self, f"_{self.level}_decision")(c, x, probe)
-        score, *tensors = _switch(branch, self._branches(), (x, t, counters, *extra, *tensors))
-        x = self._update(score, t, x, noise)
-        c = count_mode(c, self.level, sem, self.max_len, n)
-        c = c.replace(step=c.step + 1)
-        return i + 1, x, torch.stack([getattr(c, k) for k in COUNTERS]), *tensors
+        probe = probe_noise.index_select(0, i.reshape(1))[0] if table.draws_probe else None
+        sem, branch, extra, n = table.decide(c, x, probe)
+        branches = [partial(self._branch, fn, len(extra)) for _, fn in table.branches()]
+        score, *tensors = _switch(branch, branches, (x, t, counters, *extra, *tensors))
+        return i + 1, table.update(score, t, x, noise), table.counters(c, sem, n), *tensors
 
-    def _update(self, score, t, x, noise):
-        """FreSca and the Euler–Maruyama update (the chain's ``post``)."""
-        return self.scheduler.step(self.fresca(score, t), t, x, noise, self.step_size)
+    def _branch(self, fn: Callable, n_extra: int, x, t, counters, *operands) -> tuple:
+        """The table's branch ``fn`` on a ``cond``'s operands ``(x, t,
+        counters, *extra, *state tensors)``, returning ``(score, *state
+        tensors)``: each a contiguous copy, since a ``cond`` branch may not
+        return one of its inputs (as a branch does with the state it leaves
+        alone) and the branches of a ``cond`` must agree in layout (FreqCa's
+        prediction comes out of the solve column-major)."""
+        c = self._view(counters, operands[n_extra:])
+        if self.level != "score":  # the forwards write the K/V store in place: into copies
+            c = c.replace(k=c.k.clone(), v=c.v.clone())
+        score, new = fn(c, x, t, *operands[:n_extra])
+        if self.level == "kv" and self.cfg.use_freqca:
+            new = new.replace(**self._ring(c, new.crf_prev, t))
+        return tuple(a.clone(memory_format=torch.contiguous_format)
+                     for a in (score, *cache_tensors(new).values()))
 
-    def _branches(self) -> list[Callable]:
-        if self.level == "score":
-            return [self._skip, partial(self._refresh, False), partial(self._refresh, True)]
-        if self.level == "token":
-            return [partial(self._token, mode, cold) for mode, cold in (
-                (TOKEN_FULL, False), (TOKEN_TOPK, False), (TOKEN_SKIP, False), (TOKEN_FULL, True))]
-        return [partial(self._kv, mode) for mode in (MODE_FULL, MODE_MIXED, MODE_CACHED)]
+    def _ring(self, c: CacheState, crf: torch.Tensor, t: torch.Tensor) -> dict:
+        """FreqCa's ring after the step: with the CRF's entry where it is due."""
+        def entry(crf, t, *ring):
+            return tuple(kv_ring_entry(self.cfg, c.replace(**dict(zip(RING_FIELDS, ring))),
+                                       crf, t).values())
 
-    # ---------------------------------------------------- decisions, branches
-    # Each decision returns (the step's mode, its branch, the branches' extra
-    # operands, the recomputed count of count_mode); each branch takes
-    # (x, t, counters, *extra, *state tensors) and returns (score, *state tensors).
-    def _score_decision(self, c, x, probe):
-        compute = score_skip_decision(self.cfg, self.pp, c)
-        return compute, compute * (1 + c.cold), (), None
+        def keep(crf, t, *ring):
+            return tuple(a.clone() for a in ring)
 
-    def _token_decision(self, c, x, probe):
-        mode, w_drift, mean_drift = token_policy(self.cfg, self.pp, c, x)
-        cold_full = (mode == TOKEN_FULL) & (c.cold != 0)
-        n = min(int(self.cfg.token_budget), self.max_len)
-        return (mode, torch.where(cold_full, TOKEN_COLD_FULL, mode), (probe, w_drift, mean_drift),
-                n)
-
-    def _kv_decision(self, c, x, probe):
-        if self.cfg.policy == "macro":
-            mode, mask, count = macro_policy(self.pp, c, self.max_len)
-        else:
-            mode, mask, count = event_policy(self.cfg, self.pp, c, x, probe)
-        return mode, mode, (mask,), count
-
-    def _std(self, x, t):
-        t_batch = t.expand(self.batch)
-        return t_batch, self.scheduler.marginal_prob(x, t_batch)[1]
-
-    def _skip(self, x, t, counters, *tensors):
-        c = self._view(counters, tensors)
-        _, std = self._std(x, t)
-        score, c = _skip(c.replace(cold=False), self.cfg, t, std, counters[0] - counters[1])
-        return self._out(score, c)
-
-    def _refresh(self, cold, x, t, counters, *tensors):
-        c = self._view(counters, tensors)
-        t_batch, std = self._std(x, t)
-        score, c, _ = _refresh(self.network, c.replace(cold=cold), self.cfg, self.pp, x, t,
-                               t_batch, std, counters[0] - counters[1])
-        return self._out(score, c)
-
-    def _token(self, mode, cold, x, t, counters, probe, w_drift, mean_drift, *tensors):
-        c = self._view(counters, tensors)
-        t_batch, std = self._std(x, t)
-        # The forwards write the K/V store in place: into copies, here.
-        c = c.replace(cold=cold, k=c.k.clone(), v=c.v.clone())
-        score, c = _token_mode_step(self.network, c, self.cfg, self.pp, x, t_batch, std,
-                                    self.low_bonus, probe, mode, w_drift, mean_drift, c.step)
-        return self._out(score, c)
-
-    def _kv(self, mode, x, t, counters, mask, *tensors):
-        c = self._view(counters, tensors)
-        t_batch, _ = self._std(x, t)
-        score, kv, crf = score_apply_cached(self.network, x, t_batch,
-                                            (c.k.clone(), c.v.clone()), mask, mode)
-        c_new = kv_state_update(self.cfg, c, kv, crf, t, False)
-        if self.cfg.use_freqca:
-            def entry(crf, t, *ring):
-                return tuple(kv_ring_entry(self.cfg, c.replace(**dict(zip(RING_FIELDS, ring))),
-                                           crf, t).values())
-
-            def keep(crf, t, *ring):
-                return tuple(a.clone() for a in ring)
-
-            ring = torch.cond(kv_ring_due(self.cfg, c), entry, keep,
-                              (crf, t, *(getattr(c, f) for f in RING_FIELDS)))
-            c_new = c_new.replace(**dict(zip(RING_FIELDS, ring)))
-        return self._out(score, c_new)
+        ring = torch.cond(kv_ring_due(self.cfg, c), entry, keep,
+                          (crf, t, *(getattr(c, f) for f in RING_FIELDS)))
+        return dict(zip(RING_FIELDS, ring))
 
 
 def make_sampling_fn(sampler: DiffusionSampler, num_diffusion_steps: int) -> SamplingProgram:

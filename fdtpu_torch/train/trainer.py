@@ -69,7 +69,7 @@ from fdtpu_torch.train.parallel import MeshTraining
 from fdtpu_torch.train.state import ClippedAdamW, make_optimizer
 from fdtpu_torch.utils import wandb
 from fdtpu_torch.utils.device import module_device
-from fdtpu_torch.utils.graphs import CudaGraph, GraphRunner, launch_counts, set_counts
+from fdtpu_torch.utils.graphs import CudaGraph, GraphRunner, add_counts, uncounted
 from fdtpu_torch.utils.profiling import span
 
 
@@ -351,17 +351,16 @@ class ResidentEpochs:
         if key not in self.graphs:
             self._warm_up()
             graph = CudaGraph(self.pool, (self.generator,))
-            before, host = launch_counts(), (opt.count, opt.mini_step)
+            host = (opt.count, opt.mini_step)
             try:
-                graph.capture(lambda: self._epochs(n))
-                launched = tuple(a - b for a, b in zip(launch_counts(), before))
+                with uncounted() as launched:
+                    graph.capture(lambda: self._epochs(n))
             finally:
-                set_counts(before)
                 opt.count, opt.mini_step = host
-            self.graphs[key] = (graph, launched)
+            self.graphs[key] = (graph, tuple(launched))
         graph, launched = self.graphs[key]
         graph.replay()
-        set_counts(a + b for a, b in zip(launch_counts(), launched))
+        add_counts(launched)
         for _ in range(n * self.steps):
             opt.advance()
 
@@ -372,7 +371,7 @@ class ResidentEpochs:
         opt = self.optimizer
         params = [p.detach().clone() for p in opt.params]
         opt_state = copy.deepcopy(opt.state_dict())
-        gen_state, counts = self.generator.get_state(), launch_counts()
+        gen_state = self.generator.get_state()
 
         def step():
             draw_permutation(self.n_train, self.generator)
@@ -381,13 +380,13 @@ class ResidentEpochs:
             with torch.no_grad():
                 self._val_loss(0)
 
-        CudaGraph.warm_up(step)
+        with uncounted():
+            CudaGraph.warm_up(step)
         with torch.no_grad():
             for p, saved in zip(opt.params, params):
                 p.copy_(saved)
         opt.load_state_dict(opt_state)
         self.generator.set_state(gen_state)
-        set_counts(counts)
 
     def _epochs(self, n: int) -> None:
         steps_out, vals_out = self.losses[n]

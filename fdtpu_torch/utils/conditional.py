@@ -51,7 +51,7 @@ from typing import Callable, Iterable, Optional, Sequence
 import torch
 
 from fdtpu_torch.kernels import build
-from fdtpu_torch.utils.graphs import launch_counts, set_counts
+from fdtpu_torch.utils.graphs import uncounted
 
 SOURCE = "conditional"
 MAX_BRANCHES = 8
@@ -109,16 +109,11 @@ class Segment:
 
     def __init__(self, fn: Callable[[], None], pool) -> None:
         self.graph = torch.cuda.CUDAGraph(keep_graph=True)
-        before = launch_counts()
-        try:
-            with torch.cuda.graph(self.graph, pool=pool):
-                fn()
-            launched = tuple(a - b for a, b in zip(launch_counts(), before))
-        finally:
-            set_counts(before)
+        with uncounted() as launched, torch.cuda.graph(self.graph, pool=pool):
+            fn()
         nodes = _kernel_nodes(_library(), self.raw)
         self.counted = nodes is not None
-        self.launched = launched + (nodes or 0,)
+        self.launched = (*launched, nodes or 0)
 
     @property
     def raw(self) -> int:
@@ -150,16 +145,12 @@ class LoopGraph:
         self.graph = torch.cuda.CUDAGraph()
         for gen in generators:
             self.graph.register_generator_state(gen)
-        before = launch_counts()
-        try:
-            with torch.cuda.graph(self.graph, pool=torch.cuda.graph_pool_handle()):
-                prologue()
-                launched = tuple(a - b for a, b in zip(launch_counts(), before))
-                nodes = _kernel_nodes(lib, None, torch.cuda.current_stream())
-                self._append_loop(lib, mode, clock, limit)
-        finally:
-            set_counts(before)
-        self.prologue_launched = launched + (nodes or 0,)
+        pool = torch.cuda.graph_pool_handle()
+        with uncounted() as launched, torch.cuda.graph(self.graph, pool=pool):
+            prologue()
+            nodes = _kernel_nodes(lib, None, torch.cuda.current_stream())
+            self._append_loop(lib, mode, clock, limit)
+        self.prologue_launched = (*launched, nodes or 0)
         # The body's own kernels, every step: the WHILE setter, and the branch
         # setter where there is a pre segment.
         self.setters = (0,) * len(launched) + (1 + (self.pre is not None),)

@@ -34,7 +34,8 @@ chains, whose branches are decided on the device, are one graph each
 
 from __future__ import annotations
 
-from typing import Callable, Hashable, Iterable, Optional
+import contextlib
+from typing import Callable, Hashable, Iterable, Iterator, Optional
 
 import torch
 
@@ -58,6 +59,27 @@ def launch_counts() -> tuple[int, ...]:
 def set_counts(counts: Iterable[int]) -> None:
     for (module, name), n in zip(COUNTERS, counts):
         setattr(module, name, n)
+
+
+def add_counts(counts: Iterable[int]) -> None:
+    """Add launches made on the device without a host call (a replay's)."""
+    set_counts(a + b for a, b in zip(launch_counts(), counts))
+
+
+@contextlib.contextmanager
+def uncounted() -> Iterator[list[int]]:
+    """Leave the enclosed block's launches off the counts (a warm-up's, a
+    capture's, which launches nothing): the counters are put back as they
+    were when the block ends, however it ends.  Yields a list that then
+    holds the launches the block made of each counter (what a captured
+    graph adds at every replay)."""
+    before = launch_counts()
+    made: list[int] = []
+    try:
+        yield made
+    finally:
+        made.extend(a - b for a, b in zip(launch_counts(), before))
+        set_counts(before)
 
 
 class CudaGraph:
@@ -126,17 +148,13 @@ class GraphRunner:
         graph, launched = entry
         graph.replay()
         self.replays += 1
-        set_counts(a + b for a, b in zip(launch_counts(), launched))
+        add_counts(launched)
 
     def _capture(self, fn: Callable[[], None]) -> tuple[object, tuple[int, ...]]:
         graph = self.graph_type(self.pool, self.generators)
-        before = launch_counts()
-        try:
+        with uncounted() as launched:
             graph.capture(fn)
-            launched = tuple(a - b for a, b in zip(launch_counts(), before))
-        finally:
-            set_counts(before)
-        return graph, launched
+        return graph, tuple(launched)
 
 
 def write_back(targets: dict[str, torch.Tensor], values: dict[str, torch.Tensor]) -> None:

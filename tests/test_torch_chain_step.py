@@ -55,7 +55,7 @@ def test_the_step_states_reach_every_decision_of_the_pre_segment(network, auto_c
     seen = []
     for k, fields in enumerate(states(R, TAU_F32)):
         load(chain, fields, k)
-        chain._score_pre()
+        chain._pre()
         mode, sem = int(chain.mode), int(chain.sem)
         assert int(chain.modes[fields["i"]]) == sem and sem == (mode > 0), fields
         assert int(chain.clock[resident.RUNS + mode]) == (3, 1, 2)[mode] + 1, fields

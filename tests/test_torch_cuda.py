@@ -1129,8 +1129,9 @@ def test_chain_step_kernels_equal_the_chains_segments(cuda, kind, order, auto_ca
         finally:
             chain.step_kernels = True
 
-    segments = {"pre": (chain_step.score_pre, chain._score_pre, pre, (0,)),
-                "skip": (chain_step.score_skip, chain._skip, skip, (0,)),
+    segments = {"pre": (chain_step.score_pre, chain._pre, pre, (0,)),
+                "skip": (chain_step.score_skip, lambda: chain._branch(chain.table.skip, None),
+                         skip, (0,)),
                 "post": (chain_step.score_post, torch_post, post, (0, 1))}
     statics = dict(x=chain.x, score=chain.score, clock=chain.clock, mode=chain.mode,
                    sem=chain.sem, modes=chain.modes, done=chain.done, **c)
@@ -1199,7 +1200,7 @@ def test_score_chain_skips_through_the_skip_kernel_in_five_nodes(cuda):
     for kernels in (True, False):
         sampler = DiffusionSampler(_graph_model(), 4, use_cache=True, cache_kwargs=kw,
                                    batches_per_call=2)
-        chain = sampler._resident_chain(30, True, True, True)
+        chain = sampler._chain(4, 30, True, True, True, resident=True)
         chain.step_kernels = kernels
         sampler.sample(8, 30, **draws)  # captures
         before = (chain_step.launches_pre, chain_step.launches_skip, chain_step.launches_post)

@@ -122,8 +122,9 @@ def test_grouped_sampler_matches_jax(models, name):
             assert stats["mixed_steps"] == 1
         if name == "token":
             assert stats["mixed_steps"] and stats["cached_steps"] and stats["full_steps"]
-    # The resident chain is made only where batches are grouped.
-    assert bool(psamp._chains) == (num_batches >= per_call)
+    # One chain, resident only where batches are grouped.
+    (chain,) = psamp._chains.values()
+    assert chain.resident == (num_batches >= per_call)
 
 
 @pytest.mark.parametrize("name", ["uncached-boundary", "score", "token", "kv-event-freqca"])
@@ -143,7 +144,8 @@ def test_grouped_sampler_equals_the_eager_loop_with_a_generator(models, name):
         torch.testing.assert_close(b, a, rtol=0, atol=0)
         assert torch.equal(g1.get_state(), g2.get_state())
         assert eager.get_cache_stats() == grouped.get_cache_stats()
-    assert len(grouped._chains) == 1
+    # Each sampler ran both calls on one chain.
+    assert len(grouped._chains) == len(eager._chains) == 1
 
 
 def test_grouped_sampler_guard_still_fires(models):
@@ -257,3 +259,23 @@ def test_write_back_clones_a_value_that_aliases_another_static_tensor():
                                     v=torch.zeros((0,))))
     assert hat.tolist() == [3.0, 4.0] and prev.tolist() == [1.0, 2.0]
     assert targets["k"] is store and store.tolist() == [7.0]
+
+
+def test_uncounted_hands_back_the_launches_and_puts_the_counts_back(monkeypatch):
+    """The capture helper: the enclosed block's launches come back as a
+    list and leave the counters as they were, also when the block raises;
+    ``add_counts`` adds a replay's."""
+    for module, name in graphs.COUNTERS:
+        monkeypatch.setattr(module, name, 0)
+    _launch(b1=1)
+    with graphs.uncounted() as launched:
+        _launch(b1=3, b4=2)
+    assert launched == [3, 0, 0, 2, 0, 0, 0, 0]
+    assert graphs.launch_counts() == (1, 0, 0, 0, 0, 0, 0, 0)
+    with pytest.raises(RuntimeError, match="capture refused"):
+        with graphs.uncounted():
+            _launch(b2=5)
+            raise RuntimeError("capture refused")
+    assert graphs.launch_counts() == (1, 0, 0, 0, 0, 0, 0, 0)
+    graphs.add_counts(launched)
+    assert graphs.launch_counts() == (4, 0, 0, 2, 0, 0, 0, 0)

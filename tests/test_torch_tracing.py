@@ -282,10 +282,9 @@ def tiny_model():
 @pytest.mark.parametrize("use_cache, per_call", [(False, 2), (True, 2), (True, 1)],
                          ids=["uncached", "score", "score-eager"])
 def test_a_sampler_call_records_its_phases(tiny_model, use_cache, per_call):
-    """``sample(8)`` in batches of 4: the resident path's load, replay and
+    """``sample(8)`` in batches of 4: load, replay (the resident path's) and
     gather a batch, then one read and the finish, under one root; the chain's
-    counters (every step one branch's run); the eager path a span a batch
-    and no chain counters."""
+    counters (every step one branch's run), none on the eager path."""
     sampler = DiffusionSampler(tiny_model, 4, use_cache=use_cache,
                                cache_kwargs=SCORE if use_cache else None,
                                batches_per_call=per_call)
@@ -300,7 +299,9 @@ def test_a_sampler_call_records_its_phases(tiny_model, use_cache, per_call):
                                  "steps": 6}
     assert {s["call"] for s in spans} == {0, 1}
     if per_call == 1:
-        assert _children(spans, roots[0]) == ["fdtpu.sample.batch"] * 2
+        assert _children(spans, roots[0]) == [
+            "fdtpu.sample.load", "fdtpu.sample.gather", "fdtpu.sample.load",
+            "fdtpu.sample.gather", "fdtpu.sample.read", "fdtpu.sample.finish"]
         assert counters == {}
         return
     assert _children(spans, roots[0]) == [
